@@ -9,6 +9,8 @@ Run from the root of a checkout. It
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, within the tolerances stated below, and times
      kernel, plain version and (where one exists) one PyTorch library call;
+     holds B1 and B3 against their plain versions on adversarial inputs too
+     (`orbslam2_nmi_torch/kernel_cases.py`);
   4. drives the main path, `orbslam2_nmi_torch.entry.entry()` at 960x540 with
      27 renders x 27 warps, with the launch counts set to 0 just before and
      read just after; checks the scores against an all-plain run on the card
@@ -91,6 +93,7 @@ def main() -> int:
     import numpy as np
 
     from orbslam2_nmi_torch import entry as entry_mod
+    from orbslam2_nmi_torch import kernel_cases
     from orbslam2_nmi_torch.ops import histogram_nmi as hn
     from orbslam2_nmi_torch.ops import raster
 
@@ -148,23 +151,27 @@ def main() -> int:
     rargs = (b.tri_data, poses, b.capacity, float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
              float(K[1, 2]), entry_mod.NEAR, b.tiles_x)
     keys, uu, vv = raster.rasterize_keys(*rargs)
-    pk, pu, pv = raster.rasterize_keys_plain(*rargs)
-    torch.cuda.synchronize()
-    sent = int(raster.SENTINEL)
-    hit_k, hit_p = keys != sent, pk != sent
-    both = hit_k & hit_p
+    d = kernel_cases.raster_mismatch((keys, uu, vv), raster.rasterize_keys_plain(*rargs))
     n_pix = keys.numel()
-    mask_frac = (hit_k != hit_p).float().mean().item()
-    u_frac = ((uu != pu) & both).float().sum().item() / max(both.sum().item(), 1)
-    v_frac = ((vv != pv) & both).float().sum().item() / max(both.sum().item(), 1)
-    depth_diff = ((keys >> 11) - (pk >> 11)).abs()[both].max().item() if both.any() else 0
-    err = max((uu - pu).abs().max().item(), (vv - pv).abs().max().item())
-    print(f"  pixels {n_pix}, hit {hit_k.float().mean().item():.4f}; mismatch: mask "
-          f"{mask_frac}, u {u_frac}, v {v_frac}; depth levels {depth_diff}; max|du,dv| {err}")
-    check(mask_frac <= RASTER_MISMATCH_FRAC and u_frac <= RASTER_MISMATCH_FRAC
-          and v_frac <= RASTER_MISMATCH_FRAC,
-          f"hit mask, u, v equal on all but {RASTER_MISMATCH_FRAC} of pixels")
-    check(depth_diff <= RASTER_DEPTH_LEVELS, f"depth bits within {RASTER_DEPTH_LEVELS} levels")
+
+    def check_raster(d, what):
+        print(f"  {what}: hit {d['hit']:.4f}; mismatch: mask {d['mask']}, u {d['u']}, "
+              f"v {d['v']}; depth levels {d['depth']}; max|du,dv| {d['err']}")
+        check(d["mask"] <= RASTER_MISMATCH_FRAC and d["u"] <= RASTER_MISMATCH_FRAC
+              and d["v"] <= RASTER_MISMATCH_FRAC,
+              f"{what}: hit mask, u, v equal on all but {RASTER_MISMATCH_FRAC} of pixels")
+        check(d["depth"] <= RASTER_DEPTH_LEVELS,
+              f"{what}: depth bits within {RASTER_DEPTH_LEVELS} levels")
+
+    check_raster(d, f"main path, {n_pix} pixels")
+    err = d["err"]
+    print("kernel rasterize_keys (B3), adversarial inputs")
+    for name in kernel_cases.RASTER_CASES:
+        cargs = kernel_cases.raster_case(name, dev)
+        dc = kernel_cases.raster_mismatch(raster.rasterize_keys(*cargs),
+                                         raster.rasterize_keys_plain(*cargs))
+        check_raster(dc, f"{name} (capacity {cargs[2]})")
+        err = max(err, dc["err"])
     n_tests = _raster_tests(raster, b, poses, K, entry_mod.NEAR)
     tri_bytes = b.tri_data.numel() * 4 + poses.numel() * 4 + 3 * n_pix * 4
     # per (pixel, triangle) test: two edge planes (2 mul + 2 add each) + E2 (2 sub)
@@ -177,7 +184,6 @@ def main() -> int:
         bound_ms=bound, bound_by=by, library_ms=None)
     print(f"  {n_tests:.4e} (pixel, triangle) tests inside the triangles' bounding boxes; "
           f"bound {bound:.4f} ms by {by}")
-    del pk, pu, pv
 
     # --- sampler (B4 and B5) ---------------------------------------------------
     # The reference samples the entry's binning through per-tile windows (B5)
@@ -240,6 +246,15 @@ def main() -> int:
              - hn.joint_entropy_grid_plain(sb, wb, P, mask_zero)).abs().max().item()
         check(d <= ENTROPY_ATOL, f"mask_zero={mask_zero}: max |kernel - plain| {d} <= {ENTROPY_ATOL}")
         e1 = max(e1, d)
+    print("kernel joint_entropy (B1), adversarial inputs, both epilogues")
+    for name, ca, cb in kernel_cases.joint_cases(dev):
+        for mask_zero in (False, True):
+            n = ca.shape[1]
+            d = (hn.joint_entropy_grid(ca, cb, n, mask_zero)
+                 - hn.joint_entropy_grid_plain(ca, cb, n, mask_zero)).abs().max().item()
+            check(d <= ENTROPY_ATOL, f"{name} [{ca.shape[0]}x{cb.shape[0]}, P={n}], "
+                  f"mask_zero={mask_zero}: max |kernel - plain| {d} <= {ENTROPY_ATOL}")
+            e1 = max(e1, d)
     bound, by = _bound_ms((S + R) * P + S * R * 4, S * R * P)
     rows["joint_entropy"] = dict(
         source="orbslam2_nmi_torch/csrc/histogram_nmi.cu",

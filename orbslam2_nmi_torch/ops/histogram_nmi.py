@@ -33,6 +33,7 @@ import torch
 from orbslam2_nmi_torch import kernels
 
 N_BINS = 256
+JOINT_MAX_PIXELS = 2**25  # kernel B1's limit (csrc/histogram_nmi.cu, kSpillSlots * kSpill)
 _LOG2E = 1.4426950408889634
 
 
@@ -171,6 +172,9 @@ def joint_entropy_grid(synth_bins: torch.Tensor, warp_bins: torch.Tensor, n_vali
         return joint_entropy_grid_plain(synth_bins, warp_bins, n_valid, mask_zero)
     dev = kernels.require_cuda(synth_bins, warp_bins, dtypes=(torch.uint8, torch.uint8))
     S, P = synth_bins.shape
+    if P >= JOINT_MAX_PIXELS:
+        raise ValueError(f"kernel B1 takes fewer than {JOINT_MAX_PIXELS} pixels an image "
+                         f"(its spill table holds P / 2**14 bins), got {P}")
     R = warp_bins.shape[0]
     out = torch.empty((3, S, R) if mask_zero else (S, R), dtype=torch.float32, device=dev)
     kernels.launch(

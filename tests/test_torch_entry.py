@@ -185,3 +185,13 @@ def test_entry_on_card_matches_cpu(cuda_device):
     s_c, _ = fn_c(frame_c, Tcw_c)
     s_h, _ = fn_h(frame_h, Tcw_h)
     np.testing.assert_allclose(s_c.cpu().numpy(), s_h.numpy(), atol=SCORE_ATOL_WHOLE)
+
+
+def test_kernel_ablations_apply_to_the_sources():
+    """Each ablation of tools/ablate_kernels.py is one edit of the committed
+    kernel source, each found exactly once, so the tool times what it names."""
+    from orbslam2_nmi_torch.tools import ablate_kernels as ab
+
+    for kernel, name, edits, _ in ab.ABLATIONS:
+        src = ab._source(kernel, edits)
+        assert (src != ab._source(kernel, [])) == bool(edits), name

@@ -17,6 +17,7 @@ import pytest
 import torch
 from torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
 
+from orbslam2_nmi_torch import kernel_cases
 from orbslam2_nmi_torch.ops import histogram_nmi as th
 from orbslam2_nmi_tpu.ops import histogram_nmi as jh
 
@@ -154,3 +155,27 @@ def test_kernels_match_plain_on_card(cuda_device):
         torch.testing.assert_close(k, p, atol=ATOL, rtol=0)
     torch.testing.assert_close(th.marginal_entropy_grid(sb, P),
                                th.marginal_entropy_grid_plain(sb, P), atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["constant", "zero_rows_cols", "odd_pixel_count",
+                                  "unaligned_rows", "one_pair"])
+@pytest.mark.parametrize("mask_zero", [False, True])
+def test_joint_entropy_adversarial_on_card(cuda_device, case, mask_zero):
+    """B1 against its plain version on kernel_cases.joint_cases: one bin
+    holding every count, row 0 and column 0 holding most, P % 16 != 0,
+    unaligned rows, S = R = 1."""
+    sb, wb = {n: (a, b) for n, a, b in kernel_cases.joint_cases(cuda_device)}[case]
+    P = sb.shape[1]
+    torch.testing.assert_close(th.joint_entropy_grid(sb, wb, P, mask_zero=mask_zero),
+                               th.joint_entropy_grid_plain(sb, wb, P, mask_zero=mask_zero),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+def test_joint_entropy_kernel_refuses_too_many_pixels(cuda_device):
+    """B1's spill table holds P / 2**14 bins, so the wrapper refuses P >= 2**25
+    on the card rather than count wrongly."""
+    big = torch.zeros(1, th.JOINT_MAX_PIXELS, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="fewer than"):
+        th.joint_entropy_grid(big, big, th.JOINT_MAX_PIXELS)

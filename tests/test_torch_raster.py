@@ -28,6 +28,7 @@ from torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
 
 from orbslam2_nmi_torch import convert
 from orbslam2_nmi_torch import entry as tentry
+from orbslam2_nmi_torch import kernel_cases
 from orbslam2_nmi_torch.io import model_loader as tml
 from orbslam2_nmi_torch.io.model_loader import MeshModel as TMeshModel
 from orbslam2_nmi_torch.ops import raster as tr
@@ -302,3 +303,89 @@ def test_kernels_match_plain_on_card(cuda_device):
     g = tr.sample_texture(*k, tb.texture, th, tw, 0.0)
     torch.testing.assert_close(g, tr.sample_texture_plain(*k, tb.texture, th, tw, 0.0),
                                atol=0, rtol=0)
+
+
+def _covered_outside_box(tri_data, poses, fx, fy, cx, cy, near, tiles_x):
+    """(covered, outside): pixels that the plain coverage test accepts, and
+    those of them outside their triangle's screen box grown by one pixel, over
+    every (pose, tile, slot). The projections, planes and tests are the
+    operations of `rasterize_keys_plain` in f32; the box is the one kernel B3
+    sweeps: columns ceil(xmin) - 1 .. floor(xmax) + 1, rows likewise, in the
+    tile-local frame whose integer points are the pixel centers."""
+    n_tiles, _, capacity = tri_data.shape
+    tile = torch.arange(n_tiles)
+    ox = ((tile % tiles_x) * tr.TILE_W).to(torch.float32)[:, None] + 0.5
+    oy = ((tile // tiles_x) * tr.TILE_H).to(torch.float32)[:, None] + 0.5
+    pix = torch.arange(tr.TILE_H * tr.TILE_W)
+    xl = (pix % tr.TILE_W).to(torch.float32)[None, :, None]
+    yl = (pix // tr.TILE_W).to(torch.float32)[None, :, None]
+    covered = outside = 0
+    for m in poses:
+        for c0 in range(0, capacity, 128):
+            td = tri_data[:, :, c0 : c0 + 128]
+            sx, sy, sz = [], [], []
+            for k in range(3):
+                X, Y, Z = td[:, 3 * k], td[:, 3 * k + 1], td[:, 3 * k + 2]
+                zc = m[6] * X + m[7] * Y + m[8] * Z + m[11]
+                zs = torch.clamp(zc, min=1e-6)
+                sx.append(fx * (m[0] * X + m[1] * Y + m[2] * Z + m[9]) / zs + cx - ox)
+                sy.append(fy * (m[3] * X + m[4] * Y + m[5] * Z + m[10]) / zs + cy - oy)
+                sz.append(zc)
+            ok = (td[:, 15] > 0.5) & (sz[0] > near) & (sz[1] > near) & (sz[2] > near)
+            A0, B0, C0 = sy[1] - sy[2], sx[2] - sx[1], sx[1] * sy[2] - sx[2] * sy[1]
+            A1, B1, C1 = sy[2] - sy[0], sx[0] - sx[2], sx[2] * sy[0] - sx[0] * sy[2]
+            area2 = A0 * sx[0] + B0 * sy[0] + C0
+            ok &= torch.abs(area2) > 1e-9
+            sgn = torch.where(area2 >= 0, 1.0, -1.0)
+
+            def plane(a, b, c):
+                return a[:, None, :] * xl + b[:, None, :] * yl + c[:, None, :]
+
+            E0 = plane(A0 * sgn, B0 * sgn, C0 * sgn)
+            E1 = plane(A1 * sgn, B1 * sgn, C1 * sgn)
+            E2 = torch.abs(area2)[:, None, :] - E0 - E1
+            inside = (E0 >= 0) & (E1 >= 0) & (E2 >= 0) & ok[:, None, :]
+            xs, ys = torch.stack(sx), torch.stack(sy)
+            x0 = torch.clamp(torch.ceil(xs.amin(0)) - 1, min=0)[:, None, :]
+            x1 = torch.clamp(torch.floor(xs.amax(0)) + 1, max=tr.TILE_W - 1)[:, None, :]
+            y0 = torch.clamp(torch.ceil(ys.amin(0)) - 1, min=0)[:, None, :]
+            y1 = torch.clamp(torch.floor(ys.amax(0)) + 1, max=tr.TILE_H - 1)[:, None, :]
+            in_box = (xl >= x0) & (xl <= x1) & (yl >= y0) & (yl <= y1)
+            covered += int(inside.sum())
+            outside += int((inside & ~in_box).sum())
+    return covered, outside
+
+
+@pytest.mark.parametrize("case", ["toy_mesh", *kernel_cases.RASTER_CASES])
+def test_bounding_box_cull_is_exact(case):
+    """Kernel B3 tests each triangle only at the pixels of its screen box grown
+    by one pixel. No pixel that the plain coverage test accepts may lie
+    outside it: on the entry's toy mesh (64x256, 9 candidates) and on the
+    adversarial cases (triangles across tile edges, slivers 0.001 px thin,
+    near edge-on triangles, vertices on pixel centers, two chunks)."""
+    if case == "toy_mesh":
+        h, w = 64, 256
+        Kt = tentry.camera_K(h, w)
+        tb = tr.bin_mesh(tentry._toy_mesh(), np.eye(4, dtype=np.float32), Kt, h, w,
+                         tentry.NEAR, tentry.FAR, max_offset=tentry.SYNTH_STEP, device="cpu")
+        offsets = torch.from_numpy(np.array(
+            jrender.translation_grid_offsets((3, 3, 1), tentry.SYNTH_STEP), np.float32))
+        args = (tb.tri_data, tr.grid_poses(torch.eye(4), offsets), float(Kt[0, 0]),
+                float(Kt[1, 1]), float(Kt[0, 2]), float(Kt[1, 2]), tentry.NEAR, tb.tiles_x)
+    else:
+        tri, poses, _, *rest = kernel_cases.raster_case(case, "cpu")
+        args = (tri, poses, *rest)
+    covered, outside = _covered_outside_box(*args)
+    assert covered > 1000
+    assert outside == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", kernel_cases.RASTER_CASES)
+def test_rasterizer_adversarial_on_card(cuda_device, case):
+    """B3 against its plain version on the adversarial cases: hit mask, u and v
+    equal on all but 1e-4 of pixels (0 expected), depth within 2 levels."""
+    args = kernel_cases.raster_case(case, cuda_device)
+    d = kernel_cases.raster_mismatch(tr.rasterize_keys(*args), tr.rasterize_keys_plain(*args))
+    assert max(d["mask"], d["u"], d["v"]) <= 1e-4
+    assert d["depth"] <= 2
