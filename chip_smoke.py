@@ -9,8 +9,9 @@ Run from the root of a checkout. It
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, within the tolerances stated below, and times
      kernel, plain version and (where one exists) one PyTorch library call;
-     holds B1 and B3 against their plain versions on adversarial inputs too
-     (`orbslam2_nmi_torch/kernel_cases.py`);
+     holds B1, B2 and B3 against their plain versions on adversarial inputs
+     too (`orbslam2_nmi_torch/kernel_cases.py`); times B2's C entry point
+     alone beside its wrapper, so the wrapper's host time shows;
   4. drives the main path, `orbslam2_nmi_torch.entry.entry()` at 960x540 with
      27 renders x 27 warps, with the launch counts set to 0 just before and
      read just after; checks the scores against an all-plain run on the card
@@ -111,12 +112,17 @@ def main() -> int:
 
     dev = torch.device("cuda")
 
-    def cuda_ms(fn, reps=10, warmup=2):
+    def cuda_ms(fn, reps=10, warmup=2, queued=False):
+        """Mean ms a call over `reps` calls, by CUDA events. With `queued`,
+        the calls wait behind a ~10 ms sleep kernel, so all are enqueued
+        before the first runs: the device's time alone, not the host's."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(reps):
             fn()
@@ -226,19 +232,61 @@ def main() -> int:
     warped = fn.warp(frame)
     P = b.height * b.width
     sb, wb = hn.pack_bins(synth), hn.pack_bins(warped)
-    print("kernel marginal_entropy (B2)")
-    e2 = (hn.marginal_entropy_grid(sb, P) - hn.marginal_entropy_grid_plain(sb, P)).abs().max().item()
-    e2 = max(e2, (hn.marginal_entropy_grid(wb, P) - hn.marginal_entropy_grid_plain(wb, P)).abs().max().item())
-    check(e2 <= ENTROPY_ATOL, f"max |kernel - plain| {e2} <= {ENTROPY_ATOL}")
-    flat = (sb.long() + torch.arange(S, device=dev)[:, None] * 256).reshape(-1)
-    bound, by = _bound_ms(S * P + S * 4, S * P)
+    print("kernel marginal_entropy (B2), renders and warps in one launch")
+    e2 = (hn.marginal_entropy_sets(sb, wb, P)
+          - hn.marginal_entropy_sets_plain(sb, wb, P)).abs().max().item()
+    check(e2 <= ENTROPY_ATOL,
+          f"main path, {S}+{R} images: max |kernel - plain| {e2} <= {ENTROPY_ATOL}")
+    d = (hn.marginal_entropy_grid(sb, P) - hn.marginal_entropy_grid_plain(sb, P)).abs().max().item()
+    check(d <= ENTROPY_ATOL, f"renders alone (one set): max |kernel - plain| {d} <= {ENTROPY_ATOL}")
+    e2 = max(e2, d)
+    print("kernel marginal_entropy (B2), adversarial inputs")
+    for name, calls in kernel_cases.marginal_cases(dev):
+        for ca, cb in calls:
+            d = kernel_cases.marginal_error(ca, cb)
+            n_b = 0 if cb is None else cb.shape[0]
+            check(d <= ENTROPY_ATOL, f"{name} [{ca.shape[0]}+{n_b}, P={ca.shape[1]}]: "
+                  f"max |kernel - plain| {d} <= {ENTROPY_ATOL}")
+            e2 = max(e2, d)
+    flat = (torch.cat([sb, wb]).long()
+            + torch.arange(S + R, device=dev)[:, None] * 256).reshape(-1)
+    bound, by = _bound_ms((S + R) * P + (S + R) * 4, (S + R) * P)
+    h_out = torch.empty(S + R, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def b2_entry():  # the C entry point alone, on an output allocated once
+        return kernels.lib().nmi_marginal_entropy(sb.data_ptr(), S, wb.data_ptr(), R, P,
+                                                  hn._inv_n(P), h_out.data_ptr(), stream)
+
+    check(b2_entry() == 0, "B2's C entry point launches")
     rows["marginal_entropy"] = dict(
         source="orbslam2_nmi_torch/csrc/histogram_nmi.cu",
         replaces="orbslam2_nmi_tpu/ops/histogram_nmi.py:346", max_abs_err=e2,
-        ms=cuda_ms(lambda: hn.marginal_entropy_grid(sb, P)),
-        plain_ms=cuda_ms(lambda: hn.marginal_entropy_grid_plain(sb, P)),
+        ms=cuda_ms(lambda: hn.marginal_entropy_sets(sb, wb, P)),
+        plain_ms=cuda_ms(lambda: hn.marginal_entropy_sets_plain(sb, wb, P)),
         bound_ms=bound, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=S * 256)))
+        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=(S + R) * 256)))
+    entry_ms = cuda_ms(b2_entry)
+    queued_ms = cuda_ms(lambda: hn.marginal_entropy_sets(sb, wb, P), queued=True)
+
+    def host_us(fn, n=100):  # host time a call, the device left to run behind
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    wrapper_us = host_us(lambda: hn.marginal_entropy_sets(sb, wb, P))
+    print(f"  B2 host time a call: wrapper {wrapper_us:.1f} us, C entry point "
+          f"{host_us(b2_entry):.1f} us")
+    torch.cuda.synchronize()
+    check(bool((h_out == hn.marginal_entropy_sets(sb, wb, P)).all()),
+          "B2's C entry point gives the wrapper's result")
+    print(f"  B2 over {S}+{R} images: wrapper {rows['marginal_entropy']['ms']:.5f} ms, "
+          f"C entry point alone {entry_ms:.5f} ms, wrapper queued behind a sleep (device "
+          f"time) {queued_ms:.5f} ms, bound {bound:.5f} ms by {by}  [{smi}]")
     print("kernel joint_entropy (B1), both epilogues")
     e1 = 0.0
     for mask_zero in (False, True):
@@ -271,6 +319,7 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     print(f"  launches: {launches}")
     check(all(n > 0 for n in launches.values()), "every kernel of the path launched")
+    check(launches["marginal_entropy"] == 1, "B2 launched once for renders and warps together")
     check(scores.shape == (S, R) and bool(torch.isfinite(scores).all()), "scores finite, [S, R]")
 
     def plain_scores(use_background):
@@ -281,9 +330,8 @@ def main() -> int:
         if not use_background:
             Hab, Ha, Hb = hn.joint_entropy_grid_plain(a, w, P, mask_zero=True)
             return hn._combine_pairwise(Ha, Hb, Hab, "SUC")
-        return hn._combine(hn.marginal_entropy_grid_plain(a, P),
-                           hn.marginal_entropy_grid_plain(w, P),
-                           hn.joint_entropy_grid_plain(a, w, P), "SUC")
+        Ha, Hb = hn.marginal_entropy_sets_plain(a, w, P).split([S, R])
+        return hn._combine(Ha, Hb, hn.joint_entropy_grid_plain(a, w, P), "SUC")
 
     ps = plain_scores(True)
     ds = (scores - ps).abs().max().item()

@@ -44,20 +44,42 @@
 //    pixels where either bin is 0 are skipped while counting, and the row
 //    and column sums (the masked marginals Ha, Hb) are gathered in the same
 //    scan with shared atomics.
-//  * marginal: one block per image, one 256-bin shared histogram; launched once
-//    for the S renders and once for the R warps.
 //  * Each term p*log2(p), p = count * inv_n, is rounded in f32 as in the plain
 //    version and summed in f64, so the sum's order (which atomics do not fix)
 //    moves the result by far less than the tests' 1e-5.
+//
+// The marginal kernel reads (S+R)*P bytes (28 MB on the main path, 8.4 us at
+// the HBM rate) and does one shared-memory add per pixel, so bytes and the
+// rate of those adds bound it. Its design:
+//  * One launch for both image sets (renders and warps), grid (C, S+R): a
+//    cluster of C CTAs per image, so the main path's 54 images fill 216 CTAs
+//    (C = 4) instead of two launches of 27 blocks on 27 SMs.
+//  * Each CTA counts a contiguous share of the image's 16-byte words (16-byte
+//    loads) into one 256-bin u32 histogram in shared memory; rank 0 also
+//    counts the bytes before the first 16-byte boundary and after the last
+//    whole word, so any P and any row alignment take the vector path for all
+//    but 30 bytes. Random grays cost more than flat ones (bank conflicts, not
+//    adds to one address): per-warp copies of the histogram and two loads in
+//    flight were no faster on the main path or on flat images, and one add of
+//    16 for 16 equal bytes was slower on flat ones (tools/ablate_kernels.py).
+//  * Each CTA adds its 256 counts into rank 0's histogram through distributed
+//    shared memory: 256 remote adds a CTA, not one a pixel (B1's cluster
+//    design lost by its per-pixel remote adds).
+//  * A CTA whose share is empty (P < 16 * C) still reaches both cluster.sync()
+//    calls: no CTA returns before the second.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBins = 256;
 constexpr int kJointThreads = 1024;
-constexpr int kMarginalThreads = 1024;
+constexpr int kMarginalThreads = 512;
+constexpr int kMarginalCluster = 4;  // CTAs an image; above 8 is a non-portable cluster size
 constexpr int kWords = kBins * kBins / 2;  // two u16 counts per u32 word
 constexpr unsigned kSpill = 0x4000u;       // a count reaching this moves it to the spill table
 constexpr int kSpillSlots = 2048;          // more than P / kSpill bins can spill (P < 2^25)
@@ -251,33 +273,56 @@ joint_entropy_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ 
   }
 }
 
+// Counts the 16 bytes of x into hist.
+__device__ __forceinline__ void count_bytes_16(unsigned* hist, const uint4& x) {
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) atomicAdd(&hist[(w[j] >> (8 * k)) & 255u], 1u);
+}
+
+// Grid (kMarginalCluster, S + R), one cluster per image: images 0 .. S-1 are
+// the rows of a, the rest those of b. out[image] = -sum p log2 p.
 __global__ void __launch_bounds__(kMarginalThreads)
-marginal_entropy_kernel(const uint8_t* __restrict__ bins, long long P, float inv_n,
-                        float* __restrict__ out) {
-  __shared__ unsigned hist[kBins];
+marginal_entropy_kernel(const uint8_t* __restrict__ a, int S, const uint8_t* __restrict__ b,
+                        long long P, float inv_n, float* __restrict__ out) {
+  __shared__ unsigned hist[kBins];   // this CTA's counts
+  __shared__ unsigned total[kBins];  // the image's histogram, gathered in rank 0
   __shared__ double scratch[32];
-  const uint8_t* p = bins + (size_t)blockIdx.x * P;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0u;
-  __syncthreads();
-  if ((P % 16) == 0 && ((uintptr_t)p % 16) == 0) {
-    const uint4* v = reinterpret_cast<const uint4*>(p);
-    for (long long i = threadIdx.x; i < P / 16; i += blockDim.x) {
-      const uint4 x = v[i];
-      const unsigned w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) atomicAdd(&hist[(w[j] >> (8 * k)) & 255u], 1u);
-    }
-  } else {
-    for (long long i = threadIdx.x; i < P; i += blockDim.x) atomicAdd(&hist[p[i]], 1u);
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int image = blockIdx.y;
+  const uint8_t* p = image < S ? a + (size_t)image * P : b + (size_t)(image - S) * P;
+  for (int i = threadIdx.x; i < kBins; i += kMarginalThreads) hist[i] = total[i] = 0u;
+  // every CTA of the cluster is running, and rank 0's total is 0, before any remote add
+  cluster.sync();
+
+  // bytes [0, head) and [rest, P) lie outside the whole 16-byte words
+  const long long head = min(P, (long long)((16u - ((uintptr_t)p & 15u)) & 15u));
+  const long long n16 = (P - head) / 16, rest = head + 16 * n16;
+  const long long share = (n16 + kMarginalCluster - 1) / kMarginalCluster;
+  const long long lo = min(n16, (long long)rank * share), hi = min(n16, lo + share);
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+  for (long long i = lo + threadIdx.x; i < hi; i += kMarginalThreads) count_bytes_16(hist, v[i]);
+  if (rank == 0) {
+    for (long long i = threadIdx.x; i < head; i += kMarginalThreads) atomicAdd(&hist[p[i]], 1u);
+    for (long long i = rest + threadIdx.x; i < P; i += kMarginalThreads)
+      atomicAdd(&hist[p[i]], 1u);
   }
   __syncthreads();
+
+  unsigned* gathered = cluster.map_shared_rank(total, 0);
+  for (int i = threadIdx.x; i < kBins; i += kMarginalThreads)
+    if (hist[i] != 0u) atomicAdd(&gathered[i], hist[i]);
+  // every remote add has landed; after this only rank 0 reads its own memory
+  cluster.sync();
+  if (rank != 0) return;
   double h = 0.0;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x)
-    if (hist[i] != 0u) h -= plogp(hist[i], inv_n);
+  for (int i = threadIdx.x; i < kBins; i += kMarginalThreads)
+    if (total[i] != 0u) h -= plogp(total[i], inv_n);
   h = block_sum(h, scratch);
-  if (threadIdx.x == 0) out[blockIdx.x] = (float)h;
+  if (threadIdx.x == 0) out[image] = (float)h;
 }
 
 template <bool kMaskZero>
@@ -290,6 +335,31 @@ cudaError_t launch_joint(const void* a, const void* b, int S, int R, long long P
   joint_entropy_kernel<kMaskZero><<<S * R, kJointThreads, kJointSmem, stream>>>(
       (const uint8_t*)a, (const uint8_t*)b, R, P, inv_n, (float*)out, S * R);
   return cudaGetLastError();
+}
+
+cudaError_t launch_marginal(const void* a, int S, const void* b, int R, long long P, float inv_n,
+                            void* out, cudaStream_t stream) {
+  if (kMarginalCluster > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        marginal_entropy_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kMarginalCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kMarginalCluster, S + R, 1);
+  cfg.blockDim = dim3(kMarginalThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, marginal_entropy_kernel, (const uint8_t*)a, S,
+                                             (const uint8_t*)b, P, inv_n, (float*)out);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -306,12 +376,11 @@ int nmi_joint_entropy(const void* a, const void* b, int S, int R, long long P, f
                          : launch_joint<false>(a, b, S, R, P, inv_n, out, st));
 }
 
-// bins [N, P] uint8; out [N] f32.
-int nmi_marginal_entropy(const void* bins, int N, long long P, float inv_n, void* out,
-                         void* stream) {
-  marginal_entropy_kernel<<<N, kMarginalThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, P, inv_n, (float*)out);
-  return (int)cudaGetLastError();
+// a [S, P] and b [R, P] uint8 bins (b unread when R = 0); out [S+R] f32, the
+// entropies of a's rows, then b's.
+int nmi_marginal_entropy(const void* a, int S, const void* b, int R, long long P, float inv_n,
+                         void* out, void* stream) {
+  return (int)launch_marginal(a, S, b, R, P, inv_n, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

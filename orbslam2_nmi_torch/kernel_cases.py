@@ -1,4 +1,5 @@
-"""Adversarial inputs for kernels B1 (joint entropy) and B3 (rasterizer).
+"""Adversarial inputs for kernels B1 (joint entropy), B2 (marginal entropy)
+and B3 (rasterizer).
 
 `chip_smoke.py` and the card-only tests hold each kernel against its plain
 version on these inputs; `tests/test_torch_raster.py` also checks on the CPU,
@@ -7,6 +8,8 @@ outside its triangle's screen box grown by a pixel, the cull that kernel B3
 relies on. Every input is made with numpy from a seed.
 
     for name, synth_bins, warp_bins in joint_cases(device): ...
+    for name, calls in marginal_cases(device):
+        for synth_bins, warp_bins in calls: marginal_error(synth_bins, warp_bins)
     for name in RASTER_CASES: tri_data, poses, capacity, *camera, tiles_x = raster_case(name, device)
     raster_mismatch(rasterize_keys(*args), rasterize_keys_plain(*args))
 """
@@ -16,9 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orbslam2_nmi_torch.ops import histogram_nmi as hn
 from orbslam2_nmi_torch.ops.raster import SENTINEL, TILE_H, TILE_W
 
 P_MAIN = 960 * 540  # pixels of one image on the main path
+MARGINAL_CLUSTER = 4  # kernel B2's CTAs an image (kMarginalCluster, csrc/histogram_nmi.cu)
 
 # ---------------------------------------------------------------------------
 # B1: joint entropy
@@ -75,6 +80,82 @@ def joint_cases(device, P: int = P_MAIN, seed: int = 0):
          _unaligned(rand(2, P, 0.2), device, 3)),
         ("one_pair", _uint8(rand(1, P, 0.2), device), _uint8(rand(1, P, 0.05), device)),
     ]
+
+
+# ---------------------------------------------------------------------------
+# B2: marginal entropy
+# ---------------------------------------------------------------------------
+
+MARGINAL_CASES = ("constant", "uniform", "small_pixel_counts", "unaligned_rows", "4k_frames",
+                  "one_render", "one_warp", "more_than_one_wave", "one_set", "twice")
+
+
+def marginal_case(name: str, device, seed: int = 0) -> list:
+    """The calls of one adversarial case of kernel B2, to be made in order:
+    [(synth_bins [S, P] uint8, warp_bins [R, P] uint8, or None for the
+    one-set wrapper)] on `device`.
+      * constant: images of one gray each (0, 255; 7), so every add of an
+        image lands on one bin;
+      * uniform: every bin holds P / 256 counts, the pixels shuffled in one
+        image and sorted (runs of 2025 equal grays) in the other;
+      * small_pixel_counts: P = 1, 15, 17 and 16 * C - 1 (C CTAs an image):
+        CTAs with no 16-byte word to count, and bytes outside whole words;
+      * unaligned_rows: rows that start 1 and 3 bytes past alignment;
+      * 4k_frames: P = 4096 x 2160;
+      * one_render, one_warp: S = 1 with R = 27, and S = 27 with R = 1;
+      * more_than_one_wave: S + R = 756 images of 64,800 pixels, more
+        clusters than the card holds at once;
+      * one_set: R = 0, through `marginal_entropy_grid`;
+      * twice: the same shapes twice with other grays, so nothing may carry
+        over from one call to the next."""
+    rng = np.random.default_rng([seed, MARGINAL_CASES.index(name)])
+
+    def rand(n, p):
+        return _uint8(rng.integers(0, 256, (n, p), dtype=np.uint8), device)
+
+    if name == "constant":
+        return [(_uint8(np.stack([np.full(P_MAIN, 0), np.full(P_MAIN, 255)]), device),
+                 _uint8(np.full((1, P_MAIN), 7), device))]
+    if name == "uniform":
+        flat = np.repeat(np.arange(256), P_MAIN // 256)
+        return [(_uint8(rng.permutation(flat)[None], device), _uint8(flat[None], device))]
+    if name == "small_pixel_counts":
+        return [(rand(2, p), rand(3, p)) for p in (1, 15, 17, 16 * MARGINAL_CLUSTER - 1)]
+    if name == "unaligned_rows":
+        return [(_unaligned(rng.integers(0, 256, (3, P_MAIN)), device, 1),
+                 _unaligned(rng.integers(0, 256, (2, P_MAIN)), device, 3))]
+    if name == "4k_frames":
+        return [(rand(2, 4096 * 2160), rand(1, 4096 * 2160))]
+    if name == "one_render":
+        return [(rand(1, P_MAIN), rand(27, P_MAIN))]
+    if name == "one_warp":
+        return [(rand(27, P_MAIN), rand(1, P_MAIN))]
+    if name == "more_than_one_wave":
+        return [(rand(27, P_MAIN // 8), rand(729, P_MAIN // 8))]
+    if name == "one_set":
+        return [(rand(3, P_MAIN), None)]
+    if name == "twice":
+        a, b = rand(4, P_MAIN), rand(5, P_MAIN)
+        a[:, : P_MAIN // 3] = 0  # a zero border in the first call only
+        return [(a, b), (rand(4, P_MAIN), rand(5, P_MAIN))]
+    raise ValueError(f"unknown marginal case {name!r}")
+
+
+def marginal_cases(device, seed: int = 0) -> list:
+    """[(name, calls)] of every case of `marginal_case`."""
+    return [(name, marginal_case(name, device, seed)) for name in MARGINAL_CASES]
+
+
+def marginal_error(synth_bins: torch.Tensor, warp_bins: torch.Tensor | None) -> float:
+    """max |kernel B2 - its plain version| on one call of a case."""
+    P = synth_bins.shape[1]
+    if warp_bins is None:
+        got = hn.marginal_entropy_grid(synth_bins, P)
+        want = hn.marginal_entropy_grid_plain(synth_bins, P)
+    else:
+        got = hn.marginal_entropy_sets(synth_bins, warp_bins, P)
+        want = hn.marginal_entropy_sets_plain(synth_bins, warp_bins, P)
+    return (got - want).abs().max().item()
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,7 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # C entry point -> argument types (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "joint_entropy": (_p, _p, _i, _i, _ll, _f, _i, _p, _p),
-    "marginal_entropy": (_p, _i, _ll, _f, _p, _p),
+    "marginal_entropy": (_p, _i, _p, _i, _ll, _f, _p, _p),
     "rasterize_keys": (_p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _p, _p, _p, _p),
     "sample_texture": (_p, _p, _p, _ll, _p, _i, _i, _i, _f, _p, _p),
 }

@@ -7,7 +7,8 @@ of a pose grid are scored by two kernels:
 
   * `joint_entropy_grid` (kernel B1, csrc/histogram_nmi.cu): the 256x256
     joint histogram and its entropy Hab for every (render s, warp r) pair.
-  * `marginal_entropy_grid` (kernel B2): the 256-bin entropy of each image.
+  * `marginal_entropy_sets` (kernel B2): the 256-bin entropy of each render
+    and each warp, both sets in one launch (`marginal_entropy_grid` for one).
 
 Both take gray levels packed to uint8 (256 bins) with no padding, and
 normalize by the full pixel count. Each wrapper launches its kernel for CUDA
@@ -34,6 +35,7 @@ from orbslam2_nmi_torch import kernels
 
 N_BINS = 256
 JOINT_MAX_PIXELS = 2**25  # kernel B1's limit (csrc/histogram_nmi.cu, kSpillSlots * kSpill)
+MARGINAL_MAX_IMAGES = 65535  # kernel B2's limit: one image a row of its grid (gridDim.y)
 _LOG2E = 1.4426950408889634
 
 
@@ -147,11 +149,19 @@ def joint_entropy_grid_plain(synth_bins: torch.Tensor, warp_bins: torch.Tensor,
 
 
 def marginal_entropy_grid_plain(bins: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """Plain version of kernel B2: [N] entropies of [N, P] uint8 bins."""
+    """Plain version of kernel B2 on one set: [N] entropies of [N, P] uint8 bins."""
     N = bins.shape[0]
     off = (torch.arange(N, device=bins.device) * N_BINS)[:, None]
     hist = torch.bincount((bins.long() + off).reshape(-1), minlength=N * N_BINS)
     return _neg_sum_plogp(hist.reshape(N, N_BINS), n_valid)
+
+
+def marginal_entropy_sets_plain(synth_bins: torch.Tensor, warp_bins: torch.Tensor,
+                                n_valid: int) -> torch.Tensor:
+    """Plain version of kernel B2 on two sets: [S+R] entropies of synth_bins
+    [S, P], then warp_bins [R, P]."""
+    return torch.cat([marginal_entropy_grid_plain(synth_bins, n_valid),
+                      marginal_entropy_grid_plain(warp_bins, n_valid)])
 
 
 def _check_bins(*bins: torch.Tensor) -> None:
@@ -184,17 +194,38 @@ def joint_entropy_grid(synth_bins: torch.Tensor, warp_bins: torch.Tensor, n_vali
     return out
 
 
+def _launch_marginal(a: torch.Tensor, b: torch.Tensor | None, n_valid: int) -> torch.Tensor:
+    """Kernel B2 over a's rows, then b's (none when b is None), in one launch."""
+    bins = (a,) if b is None else (a, b)
+    dev = kernels.require_cuda(*bins, dtypes=(torch.uint8,) * len(bins))
+    S, P = a.shape
+    R = 0 if b is None else b.shape[0]
+    if S + R > MARGINAL_MAX_IMAGES:
+        raise ValueError(f"kernel B2 takes at most {MARGINAL_MAX_IMAGES} images a launch "
+                         f"(its grid's y dimension), got {S + R}")
+    out = torch.empty(S + R, dtype=torch.float32, device=dev)
+    kernels.launch("marginal_entropy", dev, a.data_ptr(), S, 0 if b is None else b.data_ptr(),
+                   R, P, _inv_n(n_valid), out.data_ptr())
+    return out
+
+
 def marginal_entropy_grid(bins: torch.Tensor, n_valid: int) -> torch.Tensor:
     """Per-image entropies [N] of uint8 bins [N, P]: kernel B2 on CUDA, the
     plain version on CPU."""
     _check_bins(bins)
     if bins.device.type == "cpu":
         return marginal_entropy_grid_plain(bins, n_valid)
-    dev = kernels.require_cuda(bins, dtypes=(torch.uint8,))
-    N, P = bins.shape
-    out = torch.empty(N, dtype=torch.float32, device=dev)
-    kernels.launch("marginal_entropy", dev, bins.data_ptr(), N, P, _inv_n(n_valid), out.data_ptr())
-    return out
+    return _launch_marginal(bins, None, n_valid)
+
+
+def marginal_entropy_sets(synth_bins: torch.Tensor, warp_bins: torch.Tensor,
+                          n_valid: int) -> torch.Tensor:
+    """Entropies [S+R] of uint8 bins synth_bins [S, P], then warp_bins [R, P]:
+    kernel B2 in one launch on CUDA, the plain version on CPU."""
+    _check_bins(synth_bins, warp_bins)
+    if synth_bins.device.type == "cpu":
+        return marginal_entropy_sets_plain(synth_bins, warp_bins, n_valid)
+    return _launch_marginal(synth_bins, warp_bins, n_valid)
 
 
 def pack_bins(img: torch.Tensor) -> torch.Tensor:
@@ -225,7 +256,6 @@ def nmi_scores(
     if not use_background:
         Hab, Ha, Hb = joint_entropy_grid(sb, wb, P, mask_zero=True)
         return _combine_pairwise(Ha, Hb, Hab, metric)
-    Ha = marginal_entropy_grid(sb, P)
-    Hb = marginal_entropy_grid(wb, P)
+    Ha, Hb = marginal_entropy_sets(sb, wb, P).split([sb.shape[0], wb.shape[0]])
     Hab = joint_entropy_grid(sb, wb, P)
     return _combine(Ha, Hb, Hab, metric)

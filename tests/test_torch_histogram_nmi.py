@@ -73,6 +73,53 @@ def test_marginal_entropy_grid_matches_pallas_interpret():
     np.testing.assert_allclose(out, ref, atol=5e-5)
 
 
+@pytest.mark.parametrize("S,R,P", [(3, 2, 3001), (2, 5, 6143)])
+def test_marginal_entropy_sets_match_pallas_interpret(S, R, P):
+    """The two-set form of B2 (renders, then warps, in one call) against the
+    Pallas marginal kernel run on each set, with S != R and P not a multiple
+    of 16. The Pallas kernel itself is 4.0e-5 (3001 pixels) and 2.8e-5 (6143)
+    off the exact entropy here, for the reason given in the test above, so
+    the port is held to 1e-5 against the exact value and the JAX scatter-add
+    oracle (measured 4.4e-7 and 1.4e-6) and to 5e-5 against the Pallas
+    kernel."""
+    rng = np.random.default_rng(11)
+    a, b = _bins(rng, S, P), _bins(rng, R, P)
+    a[0, : P // 2] = 0  # a zero border
+    b[-1, ::3] = 7  # a skewed histogram
+    ref = np.concatenate([np.asarray(jh.marginal_entropy_pallas(
+        jh.pad_pixels(jnp.asarray(x)), P, interpret=True)) for x in (a, b)])
+    oracle = np.concatenate([np.asarray(jnp.stack([jh.marginal_entropy(jnp.asarray(r), P)
+                                                   for r in x])) for x in (a, b)])
+    out = th.marginal_entropy_sets(torch.from_numpy(a.astype(np.uint8)),
+                                   torch.from_numpy(b.astype(np.uint8)), P)
+    assert out.shape == (S + R,) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), [_exact_entropy(x, P) for x in np.concatenate([a, b])],
+                               atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), oracle, atol=ATOL)
+    np.testing.assert_allclose(out.numpy(), ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("case", kernel_cases.MARGINAL_CASES)
+def test_marginal_cases_plain_is_exact(case):
+    """On each adversarial input of B2 (kernel_cases.marginal_case), the plain
+    version that the card's kernel is held against gives the exact (f64)
+    entropy: 0 where an image is one gray, 8 where every bin is equally
+    full."""
+    for a, b in kernel_cases.marginal_case(case, "cpu"):
+        P = a.shape[1]
+        if b is None:
+            out, rows = th.marginal_entropy_grid(a, P), a.numpy()
+        else:
+            out = th.marginal_entropy_sets(a, b, P)
+            rows = np.concatenate([a.numpy(), b.numpy()])
+        exact = [_exact_entropy(x, P) for x in rows]
+        np.testing.assert_allclose(out.numpy(), exact, atol=ATOL)
+        if case == "constant":
+            np.testing.assert_array_equal(out.numpy(), 0.0)
+        if case == "uniform":
+            np.testing.assert_array_equal(out.numpy(), 8.0)
+
+
 def test_reference_helpers_match():
     """The oracle helpers (scatter-add histograms, pads = -1) match their JAX
     counterparts, and so do quantize_to_bins and the two combiners."""
@@ -126,6 +173,25 @@ def test_nmi_scores_match_reference(metric, use_background):
     assert int(out.argmax()) == int(ref.argmax())
 
 
+@pytest.mark.parametrize("use_background", [True, False])
+def test_nmi_scores_odd_pixel_count_match_reference(use_background):
+    """nmi_scores with S != R and a pixel count that is not a multiple of 16
+    (B2 takes both sets in one call) against the JAX nmi_scores."""
+    rng = np.random.default_rng(12)
+    H, W = 17, 31
+    synth = rng.uniform(0, 255, (4, H, W)).astype(np.float32)
+    synth[1:, :, :5] = 0.0
+    warped = np.stack([synth[0], np.roll(synth[0], 2, 1), rng.uniform(0, 255, (H, W))])
+    warped = warped.astype(np.float32)
+    ref = np.asarray(jh.nmi_scores(jnp.asarray(synth), jnp.asarray(warped), use_pallas=False,
+                                   use_background=use_background))
+    out = th.nmi_scores(torch.from_numpy(synth), torch.from_numpy(warped),
+                        use_background=use_background)
+    assert out.shape == (4, 3)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+    assert int(out.argmax()) == int(ref.argmax())
+
+
 def test_nmi_scores_reject_other_bin_counts():
     """The port scores over 256 bins only (the kernels count uint8 bins): it
     takes no bin count, and grays past 255 fall into the last bin, as in the
@@ -155,6 +221,8 @@ def test_kernels_match_plain_on_card(cuda_device):
         torch.testing.assert_close(k, p, atol=ATOL, rtol=0)
     torch.testing.assert_close(th.marginal_entropy_grid(sb, P),
                                th.marginal_entropy_grid_plain(sb, P), atol=ATOL, rtol=0)
+    torch.testing.assert_close(th.marginal_entropy_sets(sb, wb, P),
+                               th.marginal_entropy_sets_plain(sb, wb, P), atol=ATOL, rtol=0)
 
 
 @pytest.mark.gpu
@@ -170,6 +238,17 @@ def test_joint_entropy_adversarial_on_card(cuda_device, case, mask_zero):
     torch.testing.assert_close(th.joint_entropy_grid(sb, wb, P, mask_zero=mask_zero),
                                th.joint_entropy_grid_plain(sb, wb, P, mask_zero=mask_zero),
                                atol=ATOL, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", kernel_cases.MARGINAL_CASES)
+def test_marginal_entropy_adversarial_on_card(cuda_device, case):
+    """B2 against its plain version on each call of kernel_cases.marginal_case:
+    one bin holding every count, every bin equally full, CTAs with empty
+    shares, unaligned rows, 4K frames, S = 1 or R = 1, more clusters than one
+    wave, one set, and two calls in a row."""
+    for a, b in kernel_cases.marginal_case(case, cuda_device):
+        assert kernel_cases.marginal_error(a, b) <= ATOL
 
 
 @pytest.mark.gpu
