@@ -17,8 +17,19 @@ Run from the root of a checkout. It
      read just after; checks the scores against an all-plain run on the card
      and that a frame rendered at the grid's center pose scores best at the
      center; then times render, warp, score and the whole step;
-  5. prints a JSON line of the step times, one JSON line listing the
-     kernels, then the final JSON line {"ok": true, "device": {...}}.
+  5. drives the NMI localizer (`entry.localizer_entry()`, 960x540) on the
+     textured mesh (render mode 1): (a) initialization from one translation
+     step off (first sweep 125 renders x 27 warps), (b) a one-step rotation
+     with a rotation-only kernel, (c) (a) with half-resolution coarse sweeps,
+     (d) a uniform-noise frame, which must fail and return the input pose;
+     holds the first grid of (a) against an all-plain run on the card; checks
+     that each kernel launched once a grid evaluation in each case; times
+     each case and splits one sweep of (a) into host binning, render, warp,
+     score and readback;
+  6. drives the localizer on the mesh's point sampling (render mode 4, the
+     point splat), case (a), where only B1 and B2 may launch;
+  7. prints a JSON line of the step times, one of the localizer's, one JSON
+     line listing the kernels, then the final JSON line {"ok": true, ...}.
 Any failed check raises, and the script exits non-zero without the final
 line. It also exits non-zero when CUDA is absent or the package is missing.
 """
@@ -79,6 +90,262 @@ def _raster_tests(raster, b, poses, K, near):
     return total
 
 
+def _plain_nmi(synth, warped, use_background):
+    """[S, R] SUC scores of renders x warps with B1 and B2 replaced by their
+    plain versions."""
+    from orbslam2_nmi_torch.ops import histogram_nmi as hn
+
+    a, w = hn.pack_bins(synth), hn.pack_bins(warped)
+    P = a.shape[1]
+    if not use_background:
+        Hab, Ha, Hb = hn.joint_entropy_grid_plain(a, w, P, mask_zero=True)
+        return hn._combine_pairwise(Ha, Hb, Hab, "SUC")
+    Ha, Hb = hn.marginal_entropy_sets_plain(a, w, P).split([a.shape[0], w.shape[0]])
+    return hn._combine(Ha, Hb, hn.joint_entropy_grid_plain(a, w, P), "SUC")
+
+
+def _all_plain_scores(b, Tcw, K, offsets, near, warped, use_background):
+    """[S, R] scores of a binned mesh's translation grid against `warped`,
+    every kernel replaced by its plain version (on the inputs' device)."""
+    from orbslam2_nmi_torch.ops import raster
+
+    S = offsets.shape[0]
+    k, u, v = raster.rasterize_keys_plain(
+        b.tri_data, raster.grid_poses(Tcw, offsets), b.capacity, float(K[0, 0]),
+        float(K[1, 1]), float(K[0, 2]), float(K[1, 2]), near, b.tiles_x)
+    g = raster.sample_texture_plain(k, u, v, b.texture, *b.tex_hw, 0.0)
+    img = raster._untile(g, S, b.tiles_y, b.tiles_x, b.height, b.width)
+    return _plain_nmi(img, warped, use_background)
+
+
+def localizer_phases(dev, smi, cuda_ms, check):
+    """Phases 5 and 6: the NMI localizer at 960x540 in both render modes.
+    Returns their record for the JSON line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import entry as entry_mod
+    from orbslam2_nmi_torch import kernels
+    from orbslam2_nmi_torch.ops import histogram_nmi as hn
+    from orbslam2_nmi_torch.ops import homography, raster, render
+    from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
+    from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer, _euler_zyx_matrix
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def wall_ms(fn, reps=3, warmup=1):
+        """Mean ms of a call, by the host's clock with the device synchronized
+        around each call."""
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return sum(times) / reps, times
+
+    def pose_error(T):  # (m, rad) against T_true = I
+        Twc = np.linalg.inv(T.astype(np.float64))
+        cos = np.clip((np.trace(Twc[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
+        return float(np.linalg.norm(Twc[:3, 3])), float(np.arccos(cos))
+
+    def recorded(loc):
+        """Record every grid evaluation of `loc`: (renders, warps, scale, best)."""
+        calls = []
+        evaluate = loc.evaluate_grid
+
+        def rec(frame, Tcw, kernel, scale=1):
+            scores = evaluate(frame, Tcw, kernel, scale)
+            calls.append((kernel.n_synth, kernel.n_warp, scale, float(scores.max())))
+            return scores
+
+        loc.evaluate_grid = rec
+        return calls
+
+    record = {}
+
+    def run_case(name, loc, frame, T, kw, mesh):
+        """Drive one case with the launch counts set to 0 just before and
+        read just after; check the counts; time it."""
+        calls = recorded(loc)
+        sync()
+        kernels.reset_launches()
+        out = loc.relocalize_strategy(frame, T.copy(), **kw)
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        n = len(calls)
+        print(f"  {name}: iterations {out.iterations}, {n} grids "
+              f"{[c[:3] for c in calls]} (renders, warps, scale), relocalized "
+              f"{out.relocalized}, nmi {out.nmi:.6f}, launches {launches}")
+        check(n == len(out.previous_poses) and n > 0, f"{name}: one pose kept a grid")
+        use_bg = loc.cfg.use_background
+        want = {"joint_entropy": n, "marginal_entropy": n if use_bg else 0,
+                "rasterize_keys": n if mesh else 0, "sample_texture": n if mesh else 0}
+        check(launches == want, f"{name}: launches {want}, one a grid evaluation")
+        del loc.evaluate_grid  # the recorder
+        ms, runs = wall_ms(lambda: loc.relocalize_strategy(frame, T.copy(), **kw))
+        print(f"  {name}: {ms:.3f} ms a call (runs {[round(t, 3) for t in runs]}, after 1 "
+              f"warm-up; {out.iterations} iterations, {n} grids)  [{smi}]")
+        record[name] = dict(ms=ms, runs_ms=runs, iterations=out.iterations, grids=n,
+                            nmi=out.nmi, relocalized=out.relocalized)
+        return out, calls
+
+    def split(loc, frame, T, kernel, mesh):
+        """One sweep's stages, timed alone: host binning (mesh), render,
+        warp, score, readback, and the whole evaluate_grid."""
+        near, far = loc.cfg.render_near, loc.cfg.render_far
+        offsets = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth, device=dev)
+        angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
+                                                 device="cpu").numpy()
+        T_dev = torch.as_tensor(T, device=dev)
+        margin = np.abs(offsets.cpu().numpy()).max(axis=0)
+        st = {}
+        if mesh:
+            def binning():
+                return raster.bin_mesh(loc.mesh, T, loc.K, loc.height, loc.width, near, far,
+                                       max_offset=margin, device=dev)
+            st["bin_mesh_host"], _ = wall_ms(binning)
+            b = binning()
+
+            def rend():
+                return raster.render_mesh_grid(b, T_dev, loc.K, offsets, near, far)
+        else:
+            def rend():
+                return render.render_translation_grid(
+                    loc.model, T_dev, loc.K, offsets, loc.height, loc.width, near, far,
+                    point_size=max(1, round(loc.cfg.render_point_size)))
+        synth = rend()
+        warped = homography.warp_rotation_grid(frame, loc.K, angles)
+        st["render"] = cuda_ms(rend, reps=5, warmup=1)
+        st["warp"] = cuda_ms(lambda: homography.warp_rotation_grid(frame, loc.K, angles),
+                             reps=5, warmup=1)
+        # the same warps with the homographies and shift bound built once, as
+        # entry()'s step builds them
+        f32 = dict(dtype=torch.float32, device=dev)
+        Hs = homography.homographies_from_angles(torch.as_tensor(loc.K, **f32),
+                                                 torch.as_tensor(angles, **f32))
+        bound = homography.shift_bounds_for_angles(loc.K, angles, loc.height, loc.width)
+        st["warp_prebuilt"] = cuda_ms(lambda: homography.warp_homographies(frame, Hs, bound),
+                                      reps=5, warmup=1)
+        st["score"] = cuda_ms(lambda: hn.nmi_scores(synth, warped), reps=5, warmup=1)
+        scores = hn.nmi_scores(synth, warped)
+
+        def readback():
+            return scores.cpu()
+
+        st["readback"], _ = wall_ms(readback)
+        st["evaluate_grid"], _ = wall_ms(lambda: loc.evaluate_grid(frame, T, kernel))
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            loc.evaluate_grid(frame, T, kernel)
+            st["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"  one {kernel.n_synth} x {kernel.n_warp} sweep, ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + "  (render, warp, score: CUDA events, mean of 5 after 1 warm-up; binning, "
+              f"readback, evaluate_grid: host clock, mean of 3)  [{smi}]")
+        return st
+
+    # --- phase 5: textured mesh -------------------------------------------------
+    t_phase = time.perf_counter()
+    print("localizer, textured mesh (render mode 1)")
+    loc, frame, T_true = entry_mod.localizer_entry(device=dev)
+    H, W = loc.height, loc.width
+    check(not np.any(T_true - np.eye(4)), "the frame is rendered at T_true = I")
+    step = loc.cfg.grid.synth_step[0]
+    T_pert = T_true.copy()
+    T_pert[0, 3] = -step  # the camera moved +step along its x axis
+    T_rot = T_true.copy()
+    T_rot[:3, :3] = _euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
+    print(f"  {W}x{H}, translation step {step} m, threshold {loc.cfg.threshold}")
+
+    # the first grid of (a), held against the all-plain composition
+    k0 = sk.initial_kernel_for_init(loc.initial_kernel)
+    scores0 = loc.evaluate_grid(frame, T_pert, k0)
+    offsets0 = render.translation_grid_offsets(k0.num_synth, k0.step_synth, device=dev)
+    b0 = raster.bin_mesh(loc.mesh, T_pert, loc.K, H, W, loc.cfg.render_near, loc.cfg.render_far,
+                         max_offset=np.abs(offsets0.cpu().numpy()).max(axis=0), device=dev)
+    angles0 = homography.rotation_grid_angles(k0.num_warp, k0.step_warp, device="cpu").numpy()
+    plain0 = _all_plain_scores(b0, torch.as_tensor(T_pert, device=dev), loc.K, offsets0,
+                               loc.cfg.render_near,
+                               homography.warp_rotation_grid(frame, loc.K, angles0),
+                               loc.cfg.use_background).cpu().numpy()
+    d0 = float(np.abs(scores0 - plain0).max())
+    print(f"  first grid of (a): {scores0.shape[0]} x {scores0.shape[1]}, binning tiles "
+          f"{b0.tiles_y}x{b0.tiles_x}, capacity {b0.capacity}, overflow {b0.overflow}; max "
+          f"|kernels - all-plain| {d0}, argmax {int(scores0.argmax())} vs {int(plain0.argmax())}, "
+          f"best {scores0.max():.6f}")
+    check(d0 <= SCORE_ATOL and int(scores0.argmax()) == int(plain0.argmax()),
+          f"first grid of (a): kernels agree with the all-plain run within {SCORE_ATOL}, "
+          f"same argmax")
+    del b0, plain0
+
+    t0, _ = pose_error(T_pert)
+    out, _ = run_case("(a) initialization", loc, frame, T_pert, dict(initializing=True), True)
+    t1, _ = pose_error(out.Tcw)
+    check(out.relocalized and t1 <= 0.5 * t0, f"(a) translation error {t1:.5f} <= 0.5 x {t0:.5f}")
+    _, r0 = pose_error(T_rot)
+    out, _ = run_case("(b) rotation only", loc, frame, T_rot,
+                      dict(dist_since=(1e-4,) * 3, rot_since=(1.5,) * 3), True)
+    _, r1 = pose_error(out.Tcw)
+    check(out.relocalized and out.num_synth == (1, 1, 1) and r1 <= 0.7 * r0,
+          f"(b) rotation-only kernel, rotation error {r1:.6f} <= 0.7 x {r0:.6f}")
+    loc_c = NMILocalizer(dataclasses.replace(loc.cfg, coarse_scale=2), loc.camera, None,
+                         mesh=loc.mesh, device=dev)
+    out, calls = run_case("(c) coarse_scale=2", loc_c, frame, T_pert, dict(initializing=True),
+                          True)
+    t1, _ = pose_error(out.Tcw)
+    check(out.relocalized and t1 <= 0.5 * t0, f"(c) translation error {t1:.5f} <= 0.5 x {t0:.5f}")
+    check([c[2] for c in calls] == [2] * (len(calls) - 1) + [1] and out.nmi == calls[-1][3],
+          "(c) coarse sweeps at 1/2 resolution, and the accepted score is the final "
+          "full-resolution sweep's")
+    noise = torch.from_numpy(np.random.default_rng(9).uniform(0, 255, (H, W))
+                             .astype(np.float32)).to(dev)
+    out, _ = run_case("(d) uniform-noise frame", loc, noise, T_pert, dict(initializing=True),
+                      True)
+    check(out.failed and not out.relocalized and out.Tcw.tobytes() == T_pert.tobytes(),
+          "(d) failed, and Tcw returned equal to the input byte for byte")
+    record["sweep_a_mesh"] = split(loc, frame, T_pert, k0, True)
+
+    print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+
+    # --- phase 6: pointcloud ----------------------------------------------------
+    t_phase = time.perf_counter()
+    print("localizer, pointcloud (render mode 4)")
+    loc4, frame4, _ = entry_mod.localizer_entry(device=dev, render_mode=4)
+    n_points = loc4.model.points.shape[0]
+    print(f"  {n_points} points (mesh_to_points of the toy mesh)")
+    offsets4 = render.translation_grid_offsets(k0.num_synth, k0.step_synth, device=dev)
+    synth4 = render.render_translation_grid(
+        loc4.model, torch.as_tensor(T_pert, device=dev), loc4.K, offsets4, H, W,
+        loc4.cfg.render_near, loc4.cfg.render_far, 3)
+    warped4 = homography.warp_rotation_grid(frame4, loc4.K, angles0)
+    s4 = hn.nmi_scores(synth4, warped4)
+    p4 = _plain_nmi(synth4, warped4, True)
+    d4 = (s4 - p4).abs().max().item()
+    print(f"  first grid of (a): max |B1, B2 - plain| {d4}, argmax {int(s4.argmax())} vs "
+          f"{int(p4.argmax())}, render coverage {(synth4 > 0).float().mean().item():.4f}")
+    check(d4 <= SCORE_ATOL and int(s4.argmax()) == int(p4.argmax()),
+          f"first grid of (a), {synth4.shape[0]} x {warped4.shape[0]}: B1 and B2 agree with "
+          f"their plain versions within {SCORE_ATOL}, same argmax")
+    del synth4, warped4, s4, p4
+    out, _ = run_case("(a) initialization, pointcloud", loc4, frame4, T_pert,
+                      dict(initializing=True), False)
+    t1, _ = pose_error(out.Tcw)
+    check(out.relocalized and t1 <= 0.5 * t0, f"(a) pointcloud: translation error {t1:.5f} <= "
+          f"0.5 x {t0:.5f}")
+    record["sweep_a_pointcloud"] = split(loc4, frame4, T_pert, k0, False)
+    record["points"] = n_points
+    print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -104,6 +371,7 @@ def main() -> int:
     ).stdout.strip()
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     so = kernels.build(verbose=True)
@@ -323,15 +591,8 @@ def main() -> int:
     check(scores.shape == (S, R) and bool(torch.isfinite(scores).all()), "scores finite, [S, R]")
 
     def plain_scores(use_background):
-        k, u, v = raster.rasterize_keys_plain(*rargs)
-        g = raster.sample_texture_plain(k, u, v, b.texture, th, tw, 0.0)
-        img = raster._untile(g, S, b.tiles_y, b.tiles_x, b.height, b.width)
-        a, w = hn.pack_bins(img), hn.pack_bins(fn.warp(frame))
-        if not use_background:
-            Hab, Ha, Hb = hn.joint_entropy_grid_plain(a, w, P, mask_zero=True)
-            return hn._combine_pairwise(Ha, Hb, Hab, "SUC")
-        Ha, Hb = hn.marginal_entropy_sets_plain(a, w, P).split([S, R])
-        return hn._combine(Ha, Hb, hn.joint_entropy_grid_plain(a, w, P), "SUC")
+        return _all_plain_scores(b, Tcw, K, fn.offsets, entry_mod.NEAR, fn.warp(frame),
+                                 use_background)
 
     ps = plain_scores(True)
     ds = (scores - ps).abs().max().item()
@@ -361,6 +622,9 @@ def main() -> int:
     print("  step ms (CUDA events, mean of 10 after 2 warm-up): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f"  [{smi}]")
 
+    print(f"build, kernel checks and the step took {time.perf_counter() - t_start:.1f} s")
+    loc_record = localizer_phases(dev, smi, cuda_ms, check)
+
     out = []
     for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "sample_texture"):
         r = rows[name]
@@ -370,6 +634,7 @@ def main() -> int:
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
     print(json.dumps({"step_ms": stage, "card": smi}))
+    print(json.dumps({"localizer": loc_record, "card": smi}))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

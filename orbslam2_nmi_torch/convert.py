@@ -1,9 +1,11 @@
 """Carry the JAX package's state into the port.
 
-The two packages share no objects; state passes between them as numpy arrays.
-Here that state is the binned mesh (the JAX `BinnedMesh` built with
-`device_arrays=False`, whose fields are numpy arrays and Python scalars),
-so that both packages render the same binned mesh in the parity tests.
+The two packages share no objects; state passes between them as numpy arrays
+and plain dicts: the binned mesh (the JAX `BinnedMesh` built with
+`device_arrays=False`, whose fields are numpy arrays and Python scalars), the
+point-splat render model, and the camera and NMI configurations (the
+`dataclasses.asdict` of the JAX dataclasses), so that both packages render,
+score and search with the same state in the parity tests.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from orbslam2_nmi_torch.ops import raster
+from orbslam2_nmi_torch import config
+from orbslam2_nmi_torch.io.model_loader import PointCloudModel
+from orbslam2_nmi_torch.ops import raster, render
 
 _DTYPES = {
     "tri_data": np.float32, "tri_ids": np.int32, "verts": np.float32, "uvs": np.float32,
@@ -34,3 +38,22 @@ def binned_from_numpy(fields: dict, device: str | torch.device = "cuda") -> rast
     for k in ("tiles_y", "tiles_x", "height", "width", "capacity", "overflow"):
         kw[k] = int(kw[k])
     return raster.to_device(raster.BinnedMesh(**kw), device)
+
+
+def render_model_from_numpy(points, gray, device: str | torch.device = "cuda") -> render.RenderModel:
+    """The port's point-splat RenderModel, on `device`, from the reference's
+    `RenderModel` fields (e.g. `np.asarray(model.points)`, `np.asarray(model.gray)`)."""
+    return render.model_from_pointcloud(
+        PointCloudModel(points=np.asarray(points), gray=np.asarray(gray)), device)
+
+
+def camera_config_from_dict(d: dict) -> config.CameraConfig:
+    """The port's CameraConfig from `dataclasses.asdict` of the reference's."""
+    return config.CameraConfig(**d)
+
+
+def nmi_config_from_dict(d: dict) -> config.NMIConfig:
+    """The port's NMIConfig from `dataclasses.asdict` of the reference's (its
+    `grid` a nested dict)."""
+    grid = {k: tuple(v) for k, v in d["grid"].items()}
+    return config.NMIConfig(**{**d, "grid": config.NMIGridConfig(**grid)})

@@ -10,7 +10,13 @@ B1 and B2), and takes the argmax on the device.
     fn, (frame, Tcw) = entry()            # 960x540, 27 renders x 27 warps
     scores, best = fn(frame, Tcw)         # [27, 27] f32, flat argmax
 
-It runs on CUDA unless the caller passes `device="cpu"` (the CPU runs the
+`localizer_entry()` builds the NMI localizer (`slam/nmi/localizer.py`) on the
+same scene, camera and steps, which turns grid steps into an anchored pose:
+
+    loc, frame, T_true = localizer_entry()          # textured mesh, 960x540
+    out = loc.relocalize_strategy(frame, T_pert, initializing=True)
+
+Both run on CUDA unless the caller passes `device="cpu"` (the CPU runs the
 kernels' plain versions; the tests use it at small sizes).
 """
 
@@ -19,8 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from orbslam2_nmi_torch import kernels
+from orbslam2_nmi_torch.config import CameraConfig, NMIConfig
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
+from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 
 NEAR, FAR = 5.0, 40.0
 SYNTH_STEP = (0.2, 0.2, 0.5)  # meters per translation-grid step (X, Y, Z)
@@ -95,10 +104,7 @@ def entry(device: str | torch.device = "cuda", height: int = 540, width: int = 9
     """(fn, (frame_gray, Tcw)): the NMI grid step at full camera resolution by
     default (960x540, 27 textured-mesh renders x 27 warps = 729 scored pose
     pairs), and an example frame and pose on `device`."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("entry() runs on CUDA and no CUDA device is available; "
-                           "pass device='cpu' to run the plain versions on the CPU")
+    device = kernels.resolve_device(device, "entry()")
     K = camera_K(height, width)
     binned = raster.bin_mesh(
         _toy_mesh(), np.eye(4, dtype=np.float32), K, height, width, NEAR, FAR,
@@ -111,3 +117,37 @@ def entry(device: str | torch.device = "cuda", height: int = 540, width: int = 9
     frame = torch.from_numpy(rng.uniform(0, 255, (height, width)).astype(np.float32)).to(device)
     Tcw = torch.eye(4, dtype=torch.float32, device=device)
     return fn, (frame, Tcw)
+
+
+def localizer_entry(device: str | torch.device = "cuda", height: int = 540, width: int = 960,
+                    render_mode: int = 1):
+    """(localizer, frame, T_true): the NMI localizer on the entry's scene and
+    camera at full camera resolution by default, with a frame rendered at
+    T_true = I by the same renderer, so an exact match exists.
+
+    `render_mode` 1 renders the textured toy mesh (kernel B3 and the
+    sampler); 4 renders the mesh's dense point sampling (`mesh_to_points`,
+    2,211,835 points) by point splat. The NMI settings are the defaults
+    (3^3 x 3^3 grids, the entry's steps, 4 iterations, SUC, background kept)
+    with near/far 5/40 m and the accept threshold 0.1.
+    """
+    device = kernels.resolve_device(device, "localizer_entry()")
+    K = camera_K(height, width)
+    camera = CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                          cy=float(K[1, 2]), width=width, height=height)
+    cfg = NMIConfig(render_near=NEAR, render_far=FAR, threshold=0.1, render_mode=render_mode)
+    mesh = _toy_mesh()
+    T_true = np.eye(4, dtype=np.float32)
+    if render_mode == 1:
+        loc = NMILocalizer(cfg, camera, None, mesh=mesh, device=device)
+        binned = raster.bin_mesh(mesh, T_true, K, height, width, NEAR, FAR, device=device)
+        frame = raster.render_mesh_grid(binned, T_true, K, torch.zeros(1, 3), NEAR, FAR)[0]
+    elif render_mode == 4:
+        model = render.model_from_pointcloud(render.mesh_to_points(mesh), device)
+        loc = NMILocalizer(cfg, camera, model, device=device)
+        frame = render.render_pointcloud(model, T_true, K, height, width, NEAR, FAR,
+                                         point_size=max(1, round(cfg.render_point_size)))
+    else:
+        raise ValueError(f"render_mode must be 1 (textured mesh) or 4 (pointcloud), "
+                         f"got {render_mode}")
+    return loc, frame, T_true

@@ -55,8 +55,9 @@ _lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -134,7 +135,25 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = handle.nmi_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")
-    LAUNCHES[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Add one to kernel `name`'s launch count. Launches come from more than
+    one thread (slam/nmi/async_worker.py), so the count is taken under the
+    lock."""
+    with _lock:
+        LAUNCHES[name] += 1
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; raise when it is CUDA and no CUDA device
+    is available, so that nothing carries on on the CPU by accident."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} runs on CUDA and no CUDA device is available; "
+                           "pass device='cpu' to run the plain versions on the CPU")
+    return device
 
 
 def require_cuda(*tensors: torch.Tensor, dtypes) -> torch.device:

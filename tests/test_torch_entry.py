@@ -35,7 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import cuda_device  # noqa: F401  (fixture)
+from torch_port_fixtures import THREADS, cuda_device  # noqa: F401  (fixture)
 
 from orbslam2_nmi_torch import config as tconfig
 from orbslam2_nmi_torch import convert
@@ -143,18 +143,32 @@ def test_entry_raises_without_cuda(monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Running the port's entry on the CPU leaves jax and the JAX package out
-    of sys.modules, and no file of the port (nor chip_smoke.py) imports them."""
+    """Running the port's entry and its localizer (one strategy on the
+    textured mesh, and one grid on the point model) on the CPU leaves jax and
+    the JAX package out of sys.modules, and no file of the port (nor
+    chip_smoke.py) imports them."""
     code = (
         "import sys, json\n"
-        "from orbslam2_nmi_torch.entry import entry\n"
+        "import numpy as np, torch\n"
+        "from orbslam2_nmi_torch.entry import entry, localizer_entry\n"
+        "from orbslam2_nmi_torch.ops import render\n"
+        "from orbslam2_nmi_torch.slam.nmi import async_worker, localizer\n"
         "fn, args = entry(device='cpu', height=32, width=128, synth_num=(1, 1, 1),"
         " warp_num=(1, 1, 1))\n"
         "fn(*args)\n"
+        "loc, frame, T = localizer_entry(device='cpu', height=32, width=128)\n"
+        "T[0, 3] = -0.2\n"
+        "out = loc.relocalize_strategy(frame, T)\n"
+        "assert out.relocalized and abs(out.Tcw[0, 3]) < 1e-6, out\n"
+        "pts = render.mesh_to_points(loc.mesh, samples_per_unit_area=4.0)\n"
+        "loc.model = render.model_from_pointcloud(pts, 'cpu')\n"
+        "loc.mesh = None\n"
+        "assert loc.evaluate_grid(frame, T, loc.initial_kernel).shape == (27, 27)\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = str(THREADS)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
