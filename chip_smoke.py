@@ -22,12 +22,14 @@ Run from the root of a checkout. It
      step off (first sweep 125 renders x 27 warps), (b) a one-step rotation
      with a rotation-only kernel, (c) (a) with half-resolution coarse sweeps,
      (d) a uniform-noise frame, which must fail and return the input pose;
-     holds the first grid of (a) against an all-plain run on the card; checks
+     in each case holds the first grid of each (renders, warps, scale)
+     against an all-plain run on the card on the same sweep inputs; checks
      that each kernel launched once a grid evaluation in each case; times
-     each case and splits one sweep of (a) into host binning, render, warp,
-     score and readback;
+     each case and splits one sweep of (a) into the localizer's stages (host
+     binning, render, warp, score) and the readback;
   6. drives the localizer on the mesh's point sampling (render mode 4, the
-     point splat), case (a), where only B1 and B2 may launch;
+     point splat), case (a), where only B1 and B2 may launch, with the same
+     all-plain checks;
   7. prints a JSON line of the step times, one of the localizer's, one JSON
      line listing the kernels, then the final JSON line {"ok": true, ...}.
 Any failed check raises, and the script exits non-zero without the final
@@ -128,8 +130,6 @@ def localizer_phases(dev, smi, cuda_ms, check):
 
     from orbslam2_nmi_torch import entry as entry_mod
     from orbslam2_nmi_torch import kernels
-    from orbslam2_nmi_torch.ops import histogram_nmi as hn
-    from orbslam2_nmi_torch.ops import homography, raster, render
     from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
     from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer, _euler_zyx_matrix
 
@@ -156,25 +156,59 @@ def localizer_phases(dev, smi, cuda_ms, check):
         cos = np.clip((np.trace(Twc[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
         return float(np.linalg.norm(Twc[:3, 3])), float(np.arccos(cos))
 
-    def recorded(loc):
-        """Record every grid evaluation of `loc`: (renders, warps, scale, best)."""
+    record = {"plain_checks": []}
+
+    def plain_check(name, loc, frame, Tcw, kernel, scale, scores):
+        """Score the grid again on the same sweep inputs (binning, offsets,
+        warped frame) with every kernel replaced by its plain version; the
+        scores must agree within SCORE_ATOL, with the same argmax. Plain
+        versions launch nothing, so the launch counts are untouched."""
+        sw = loc.prepare_sweep(frame, Tcw, kernel, scale)
+        warped = loc.warp_sweep(sw)
+        use_bg = loc.cfg.use_background
+        if sw.binned is not None:
+            plain = _all_plain_scores(sw.binned, sw.Tcw, sw.K, sw.offsets, loc.cfg.render_near,
+                                      warped, use_bg)
+        else:  # the splat is torch ops: only B1 and B2 have plain versions
+            plain = _plain_nmi(loc.render_sweep(sw), warped, use_bg)
+        plain = plain.cpu().numpy()
+        d = float(np.abs(scores - plain).max())
+        am, pm = int(scores.argmax()), int(plain.argmax())
+        what = f"{name}, first {kernel.n_synth} x {kernel.n_warp} grid at {sw.width}x{sw.height}"
+        binning = ("" if sw.binned is None else f", binning tiles {sw.binned.tiles_y}x"
+                   f"{sw.binned.tiles_x}, capacity {sw.binned.capacity}, overflow "
+                   f"{sw.binned.overflow}")
+        print(f"  {what}{binning}: max |kernels - all-plain| {d}, argmax {am} vs {pm}, "
+              f"best {scores.max():.6f}")
+        check(d <= SCORE_ATOL and am == pm,
+              f"{what}: kernels agree with the all-plain run within {SCORE_ATOL}, same argmax")
+        record["plain_checks"].append(dict(case=name, renders=kernel.n_synth,
+                                           warps=kernel.n_warp, scale=scale,
+                                           max_abs_diff=d, argmax=am))
+
+    def recorded(name, loc):
+        """Record every grid evaluation of `loc`: (renders, warps, scale,
+        best); hold the first grid of each (renders, warps, scale) against
+        the all-plain run."""
         calls = []
         evaluate = loc.evaluate_grid
 
         def rec(frame, Tcw, kernel, scale=1):
             scores = evaluate(frame, Tcw, kernel, scale)
-            calls.append((kernel.n_synth, kernel.n_warp, scale, float(scores.max())))
+            shape = (kernel.n_synth, kernel.n_warp, scale)
+            if shape not in [c[:3] for c in calls]:
+                plain_check(name, loc, frame, Tcw, kernel, scale, scores)
+            calls.append(shape + (float(scores.max()),))
             return scores
 
         loc.evaluate_grid = rec
         return calls
 
-    record = {}
-
     def run_case(name, loc, frame, T, kw, mesh):
         """Drive one case with the launch counts set to 0 just before and
-        read just after; check the counts; time it."""
-        calls = recorded(loc)
+        read just after; check the counts and each grid shape against the
+        all-plain run; time it."""
+        calls = recorded(name, loc)
         sync()
         kernels.reset_launches()
         out = loc.relocalize_strategy(frame, T.copy(), **kw)
@@ -197,50 +231,20 @@ def localizer_phases(dev, smi, cuda_ms, check):
                             nmi=out.nmi, relocalized=out.relocalized)
         return out, calls
 
-    def split(loc, frame, T, kernel, mesh):
-        """One sweep's stages, timed alone: host binning (mesh), render,
-        warp, score, readback, and the whole evaluate_grid."""
-        near, far = loc.cfg.render_near, loc.cfg.render_far
-        offsets = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth, device=dev)
-        angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
-                                                 device="cpu").numpy()
-        T_dev = torch.as_tensor(T, device=dev)
-        margin = np.abs(offsets.cpu().numpy()).max(axis=0)
+    def split(loc, frame, T, kernel):
+        """One sweep through the localizer's own stages, each timed alone:
+        prepare (host: the mesh's bin_mesh and the uploads), render, warp
+        (with its host homography build), score, readback, and the whole
+        evaluate_grid."""
         st = {}
-        if mesh:
-            def binning():
-                return raster.bin_mesh(loc.mesh, T, loc.K, loc.height, loc.width, near, far,
-                                       max_offset=margin, device=dev)
-            st["bin_mesh_host"], _ = wall_ms(binning)
-            b = binning()
-
-            def rend():
-                return raster.render_mesh_grid(b, T_dev, loc.K, offsets, near, far)
-        else:
-            def rend():
-                return render.render_translation_grid(
-                    loc.model, T_dev, loc.K, offsets, loc.height, loc.width, near, far,
-                    point_size=max(1, round(loc.cfg.render_point_size)))
-        synth = rend()
-        warped = homography.warp_rotation_grid(frame, loc.K, angles)
-        st["render"] = cuda_ms(rend, reps=5, warmup=1)
-        st["warp"] = cuda_ms(lambda: homography.warp_rotation_grid(frame, loc.K, angles),
-                             reps=5, warmup=1)
-        # the same warps with the homographies and shift bound built once, as
-        # entry()'s step builds them
-        f32 = dict(dtype=torch.float32, device=dev)
-        Hs = homography.homographies_from_angles(torch.as_tensor(loc.K, **f32),
-                                                 torch.as_tensor(angles, **f32))
-        bound = homography.shift_bounds_for_angles(loc.K, angles, loc.height, loc.width)
-        st["warp_prebuilt"] = cuda_ms(lambda: homography.warp_homographies(frame, Hs, bound),
-                                      reps=5, warmup=1)
-        st["score"] = cuda_ms(lambda: hn.nmi_scores(synth, warped), reps=5, warmup=1)
-        scores = hn.nmi_scores(synth, warped)
-
-        def readback():
-            return scores.cpu()
-
-        st["readback"], _ = wall_ms(readback)
+        st["prepare"], _ = wall_ms(lambda: loc.prepare_sweep(frame, T, kernel))
+        sw = loc.prepare_sweep(frame, T, kernel)
+        synth, warped = loc.render_sweep(sw), loc.warp_sweep(sw)
+        st["render"] = cuda_ms(lambda: loc.render_sweep(sw), reps=5, warmup=1)
+        st["warp"] = cuda_ms(lambda: loc.warp_sweep(sw), reps=5, warmup=1)
+        st["score"] = cuda_ms(lambda: loc.score_sweep(synth, warped), reps=5, warmup=1)
+        scores = loc.score_sweep(synth, warped)
+        st["readback"], _ = wall_ms(lambda: scores.cpu())
         st["evaluate_grid"], _ = wall_ms(lambda: loc.evaluate_grid(frame, T, kernel))
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -248,7 +252,7 @@ def localizer_phases(dev, smi, cuda_ms, check):
             st["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         print(f"  one {kernel.n_synth} x {kernel.n_warp} sweep, ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
-              + "  (render, warp, score: CUDA events, mean of 5 after 1 warm-up; binning, "
+              + "  (render, warp, score: CUDA events, mean of 5 after 1 warm-up; prepare, "
               f"readback, evaluate_grid: host clock, mean of 3)  [{smi}]")
         return st
 
@@ -264,27 +268,6 @@ def localizer_phases(dev, smi, cuda_ms, check):
     T_rot = T_true.copy()
     T_rot[:3, :3] = _euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
     print(f"  {W}x{H}, translation step {step} m, threshold {loc.cfg.threshold}")
-
-    # the first grid of (a), held against the all-plain composition
-    k0 = sk.initial_kernel_for_init(loc.initial_kernel)
-    scores0 = loc.evaluate_grid(frame, T_pert, k0)
-    offsets0 = render.translation_grid_offsets(k0.num_synth, k0.step_synth, device=dev)
-    b0 = raster.bin_mesh(loc.mesh, T_pert, loc.K, H, W, loc.cfg.render_near, loc.cfg.render_far,
-                         max_offset=np.abs(offsets0.cpu().numpy()).max(axis=0), device=dev)
-    angles0 = homography.rotation_grid_angles(k0.num_warp, k0.step_warp, device="cpu").numpy()
-    plain0 = _all_plain_scores(b0, torch.as_tensor(T_pert, device=dev), loc.K, offsets0,
-                               loc.cfg.render_near,
-                               homography.warp_rotation_grid(frame, loc.K, angles0),
-                               loc.cfg.use_background).cpu().numpy()
-    d0 = float(np.abs(scores0 - plain0).max())
-    print(f"  first grid of (a): {scores0.shape[0]} x {scores0.shape[1]}, binning tiles "
-          f"{b0.tiles_y}x{b0.tiles_x}, capacity {b0.capacity}, overflow {b0.overflow}; max "
-          f"|kernels - all-plain| {d0}, argmax {int(scores0.argmax())} vs {int(plain0.argmax())}, "
-          f"best {scores0.max():.6f}")
-    check(d0 <= SCORE_ATOL and int(scores0.argmax()) == int(plain0.argmax()),
-          f"first grid of (a): kernels agree with the all-plain run within {SCORE_ATOL}, "
-          f"same argmax")
-    del b0, plain0
 
     t0, _ = pose_error(T_pert)
     out, _ = run_case("(a) initialization", loc, frame, T_pert, dict(initializing=True), True)
@@ -311,7 +294,8 @@ def localizer_phases(dev, smi, cuda_ms, check):
                       True)
     check(out.failed and not out.relocalized and out.Tcw.tobytes() == T_pert.tobytes(),
           "(d) failed, and Tcw returned equal to the input byte for byte")
-    record["sweep_a_mesh"] = split(loc, frame, T_pert, k0, True)
+    k0 = sk.initial_kernel_for_init(loc.initial_kernel)
+    record["sweep_a_mesh"] = split(loc, frame, T_pert, k0)
 
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
 
@@ -320,27 +304,14 @@ def localizer_phases(dev, smi, cuda_ms, check):
     print("localizer, pointcloud (render mode 4)")
     loc4, frame4, _ = entry_mod.localizer_entry(device=dev, render_mode=4)
     n_points = loc4.model.points.shape[0]
-    print(f"  {n_points} points (mesh_to_points of the toy mesh)")
-    offsets4 = render.translation_grid_offsets(k0.num_synth, k0.step_synth, device=dev)
-    synth4 = render.render_translation_grid(
-        loc4.model, torch.as_tensor(T_pert, device=dev), loc4.K, offsets4, H, W,
-        loc4.cfg.render_near, loc4.cfg.render_far, 3)
-    warped4 = homography.warp_rotation_grid(frame4, loc4.K, angles0)
-    s4 = hn.nmi_scores(synth4, warped4)
-    p4 = _plain_nmi(synth4, warped4, True)
-    d4 = (s4 - p4).abs().max().item()
-    print(f"  first grid of (a): max |B1, B2 - plain| {d4}, argmax {int(s4.argmax())} vs "
-          f"{int(p4.argmax())}, render coverage {(synth4 > 0).float().mean().item():.4f}")
-    check(d4 <= SCORE_ATOL and int(s4.argmax()) == int(p4.argmax()),
-          f"first grid of (a), {synth4.shape[0]} x {warped4.shape[0]}: B1 and B2 agree with "
-          f"their plain versions within {SCORE_ATOL}, same argmax")
-    del synth4, warped4, s4, p4
+    print(f"  {n_points} points (mesh_to_points of the toy mesh), frame coverage "
+          f"{(frame4 > 0).float().mean().item():.4f}")
     out, _ = run_case("(a) initialization, pointcloud", loc4, frame4, T_pert,
                       dict(initializing=True), False)
     t1, _ = pose_error(out.Tcw)
     check(out.relocalized and t1 <= 0.5 * t0, f"(a) pointcloud: translation error {t1:.5f} <= "
           f"0.5 x {t0:.5f}")
-    record["sweep_a_pointcloud"] = split(loc4, frame4, T_pert, k0, False)
+    record["sweep_a_pointcloud"] = split(loc4, frame4, T_pert, k0)
     record["points"] = n_points
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
     return record

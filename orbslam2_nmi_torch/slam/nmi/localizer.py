@@ -72,6 +72,21 @@ class NMIOutcome:
     num_warp: tuple = (3, 3, 3)
 
 
+@dataclass
+class Sweep:
+    """One grid evaluation's inputs on the device, shared by its stages."""
+
+    frame: torch.Tensor  # [h, w] f32, box-pooled at scale > 1
+    K: np.ndarray  # host f32 intrinsics at this scale
+    Tcw: torch.Tensor  # [4, 4] f32, the grid's center pose
+    offsets: torch.Tensor  # [S, 3] camera-frame translation candidates
+    angles: np.ndarray  # [R, 3] host rotation hypotheses
+    height: int
+    width: int
+    point_size: int  # splat size at this scale (point model only)
+    binned: Optional[raster.BinnedMesh]  # the mesh's binning, None for a point model
+
+
 def _box_pool(img: torch.Tensor, scale: int) -> torch.Tensor:
     """[H, W] -> [H//s, W//s] average pooling (exact box filter). Each
     window is summed row by row and the sum multiplied by the f32 reciprocal
@@ -152,9 +167,20 @@ class NMILocalizer:
         `scale > 1` evaluates at reduced resolution (box-pooled camera frame,
         scaled intrinsics), used for the coarse iterations of the search (the
         FINAL iteration always runs at full resolution)."""
+        sweep = self.prepare_sweep(frame_gray, Tcw, kernel, scale)
+        return self.score_sweep(self.render_sweep(sweep), self.warp_sweep(sweep)).cpu().numpy()
+
+    # The stages of one `evaluate_grid`, callable alone so that a grid can be
+    # timed stage by stage or re-scored against other versions of its kernels.
+
+    def prepare_sweep(
+        self, frame_gray: torch.Tensor, Tcw: np.ndarray, kernel: sk.SearchKernel,
+        scale: int = 1,
+    ) -> Sweep:
+        """The host stage: the frame and intrinsics at `scale`, the candidate
+        grid, and for a mesh its binning (numpy, then uploaded)."""
         offsets_host = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
                                                        device="cpu")
-        offsets = offsets_host.to(self.device)
         angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
                                                  device="cpu").numpy()
         h, w = self.height // scale, self.width // scale
@@ -164,7 +190,7 @@ class NMILocalizer:
             K = K.copy()
             K[:2] /= scale
             frame = _box_pool(frame, scale)
-        Tcw_dev = torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device)
+        binned = None
         if self.mesh is not None:
             # RENDER_TEXTURE: binned per pose, with a margin that covers the
             # whole candidate grid so all S renders share one binning
@@ -174,18 +200,32 @@ class NMILocalizer:
             )
             if binned.overflow:
                 self.log(f"NMI raster: {binned.overflow} tile-list entries dropped (capacity)")
-            synth = raster.render_mesh_grid(binned, Tcw_dev, K, offsets,
-                                            self.cfg.render_near, self.cfg.render_far)
-        else:
-            synth = render.render_translation_grid(
-                self.model, Tcw_dev, K, offsets, h, w, self.cfg.render_near,
-                self.cfg.render_far,
-                point_size=max(1, int(round(self.cfg.render_point_size / scale))),
-            )
-        warped = homography.warp_rotation_grid(frame, K, angles)
-        scores = histogram_nmi.nmi_scores(synth, warped, metric=self.cfg.metric,
-                                          use_background=self.cfg.use_background)
-        return scores.cpu().numpy()
+        return Sweep(
+            frame=frame, K=K,
+            Tcw=torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device),
+            offsets=offsets_host.to(self.device), angles=angles, height=h, width=w,
+            point_size=max(1, int(round(self.cfg.render_point_size / scale))), binned=binned,
+        )
+
+    def render_sweep(self, sweep: Sweep) -> torch.Tensor:
+        """[S, h, w] renders of the model at the S candidates."""
+        if sweep.binned is not None:
+            return raster.render_mesh_grid(sweep.binned, sweep.Tcw, sweep.K, sweep.offsets,
+                                           self.cfg.render_near, self.cfg.render_far)
+        return render.render_translation_grid(
+            self.model, sweep.Tcw, sweep.K, sweep.offsets, sweep.height, sweep.width,
+            self.cfg.render_near, self.cfg.render_far, point_size=sweep.point_size,
+        )
+
+    def warp_sweep(self, sweep: Sweep) -> torch.Tensor:
+        """[R, h, w] warps of the frame by the R rotation hypotheses; the
+        homographies are built on each call."""
+        return homography.warp_rotation_grid(sweep.frame, sweep.K, sweep.angles)
+
+    def score_sweep(self, synth: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
+        """[S, R] scores on the device."""
+        return histogram_nmi.nmi_scores(synth, warped, metric=self.cfg.metric,
+                                        use_background=self.cfg.use_background)
 
     # ------------------------------------------------------------- one round
 

@@ -298,10 +298,13 @@ def test_mesh_is_never_rendered_by_the_splat(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("render_mode", [1, 4])
-def test_strategy_on_card_matches_cpu(cuda_device, render_mode):
+def test_strategy_on_card_matches_cpu(cuda_device, render_mode, record_property):
     """The strategy on the card (kernels) against the CPU (plain versions):
     the same sweeps and outcome, and Tcw within 1e-5. Mesh: 48x256; points:
-    the 60x80 world. The scores may differ within the whole-step bar."""
+    the 60x80 world. On an H100 (80GB HBM3, 700 W) both modes measured nmi
+    and Tcw gaps of exactly 0 (recorded as the `nmi_gap` and `tcw_gap`
+    properties), so the nmi bar is 1e-6 in both modes: a few f32 steps of a
+    score near 1."""
     outs = []
     for dev in (cuda_device, "cpu"):
         logs = []
@@ -323,7 +326,9 @@ def test_strategy_on_card_matches_cpu(cuda_device, render_mode):
         out = loc.relocalize_strategy(frame, T, **kw)
         outs.append((out, [_CELLS.findall(line) for line in logs]))
     (card, cells_card), (cpu, cells_cpu) = outs
+    record_property("nmi_gap", abs(card.nmi - cpu.nmi))
+    record_property("tcw_gap", float(np.abs(card.Tcw - cpu.Tcw).max()))
     assert cells_card == cells_cpu
     assert (card.iterations, card.relocalized) == (cpu.iterations, cpu.relocalized)
     np.testing.assert_allclose(card.Tcw, cpu.Tcw, atol=STRATEGY_POSE_ATOL, rtol=0)
-    assert abs(card.nmi - cpu.nmi) <= 2e-3
+    assert abs(card.nmi - cpu.nmi) <= 1e-6

@@ -156,11 +156,13 @@ def test_mesh_to_points_bit_for_bit(case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("point_size", [1, 3])
-def test_render_translation_grid_on_card_matches_cpu(cuda_device, point_size):
+def test_render_translation_grid_on_card_matches_cpu(cuda_device, point_size, record_property):
     """The splat on the card against the CPU: the projection's products are
-    rounded by other libraries there (cuBLAS for the rotation), which can
-    move a point across a pixel or depth-quantum edge; at most 0.5 % of
-    pixels may differ."""
+    rounded by other libraries there (cuBLAS for the rotation), which could
+    move a point across a pixel or depth-quantum edge. On an H100 (80GB
+    HBM3, 700 W) no pixel differed at either point size (recorded as the
+    `pixel_mismatch` property), so the bar is 1e-4 of the pixels (51 of the
+    27 renders' 518,400)."""
     pts, gray = make_world(40000, seed=7)
     T = _pose(2)
     offsets = torch.from_numpy(np.array(jr.translation_grid_offsets((3, 3, 3), (0.3,) * 3)))
@@ -169,4 +171,5 @@ def test_render_translation_grid_on_card_matches_cpu(cuda_device, point_size):
         m = convert.render_model_from_numpy(pts, gray, dev)
         outs.append(tr.render_translation_grid(m, torch.from_numpy(T), K, offsets, H, W, NEAR,
                                                FAR, point_size).cpu().numpy())
-    assert (outs[0] != outs[1]).mean() <= 5e-3
+    record_property("pixel_mismatch", float((outs[0] != outs[1]).mean()))
+    assert (outs[0] != outs[1]).mean() <= 1e-4
