@@ -30,8 +30,23 @@ Run from the root of a checkout. It
   6. drives the localizer on the mesh's point sampling (render mode 4, the
      point splat), case (a), where only B1 and B2 may launch, with the same
      all-plain checks;
-  7. prints a JSON line of the step times, one of the localizer's, one JSON
-     line listing the kernels, then the final JSON line {"ok": true, ...}.
+  7. drives the per-frame tracking front-end (`entry.tracking_entry()`,
+     960x540, 2,000 ORB features, 2,048 local-map candidates), seeded from
+     ground truth: renders frames 6-55 of the 520-frame circuit (B3 and the
+     sampler, launch counts set to 0 just before and read after the chain),
+     runs the step over frames 8-55 with each frame's carry feeding the next
+     and the candidates rebuilt at the last estimate; checks every frame
+     against the tracking gate and the camera-center error against ground
+     truth; holds B3 and the sampler against their plain versions on frame
+     8's binning of the circuit's terrain; holds eager against CUDA-graph
+     replay bit for bit on three frames, runs a step under
+     `set_sync_debug_mode("error")`, runs one with TF32 turned on, holds the
+     first frame's step against the CPU's; times the step eagerly (by
+     stage) and replayed, the host's share of a frame, and the rendering of
+     one frame and its host binning;
+  8. prints a JSON line of the step times, one of the localizer's, one of the
+     tracking phase's, one JSON line listing the kernels, then the final JSON
+     line {"ok": true, ...}.
 Any failed check raises, and the script exits non-zero without the final
 line. It also exits non-zero when CUDA is absent or the package is missing.
 """
@@ -47,6 +62,18 @@ RASTER_MISMATCH_FRAC = 1e-4  # hit mask, u, v: same f32 operations, so expected 
 RASTER_DEPTH_LEVELS = 2  # depth bits (key >> 11) where both hit
 SAMPLER_ATOL = 0.0  # no FMA contraction, bf16 rounding copied: bit for bit
 SCORE_ATOL = 1e-5  # [S, R] scores, kernels vs all-plain
+
+# The tracking phase: frames 8-55 of the 520-frame circuit (frames 6 and 7 seed),
+# and its bar on every frame's camera-center error (the reference's own online
+# maximum on the whole circuit with a real map was 0.0625 m, FULL_CIRCUIT_r05.json).
+TRACK_FIRST, TRACK_COUNT, TRACK_CIRCUIT = 8, 48, 520
+TRACK_ERR_M = 0.05
+# The first frame's step on the card against the CPU, each bar just above the
+# readings at 960x540 on an H100 (keypoints equal, 5.1e-5 of descriptor bits,
+# counts equal, Tcw 1.3e-6): the CUDA cumsum's order moves the angles.
+TRACK_CPU_DESC_BITS = 1e-4
+TRACK_CPU_COUNT_GAP = 1
+TRACK_CPU_TCW = 5e-6
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit), for bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -315,6 +342,253 @@ def localizer_phases(dev, smi, cuda_ms, check):
     record["points"] = n_points
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
     return record
+
+
+def tracking_phase(dev, smi, check, check_raster):
+    """Phase 7: the per-frame tracking front-end at the full circuit's
+    configuration (960x540, 2,000 features, 2,048 candidates), seeded from
+    ground truth. Returns its record for the JSON line."""
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import kernel_cases, kernels
+    from orbslam2_nmi_torch.entry import tracking_entry
+    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld
+    from orbslam2_nmi_torch.ops import raster
+    from orbslam2_nmi_torch.slam.fused_track import FusedTrackStep, TrackCarry, unpack_step
+
+    t_phase = time.perf_counter()
+    print("tracking front-end (slam/fused_track.FusedTrackStep), seeded from ground truth")
+    kernels.reset_launches()
+    step, frames, carry, candidates, poses = tracking_entry(device=dev, first=TRACK_FIRST,
+                                                            count=TRACK_COUNT)
+    n = len(frames)
+    t_entry = time.perf_counter() - t_phase
+    print(f"  {frames.shape[2]}x{frames.shape[1]}, {n} frames from {TRACK_FIRST} of a "
+          f"{TRACK_CIRCUIT}-frame circuit, {step.n_feat} features, {step.n_cand} candidates; "
+          f"tracking_entry (rendering {n + 2} frames, seeding) {t_entry:.1f} s")
+    check(frames.shape == (TRACK_COUNT, 540, 960) and frames.dtype == torch.uint8
+          and step.n_feat == 2000 and step.n_cand == 2048, "the full circuit's configuration")
+
+    def center(T):
+        return -T[:3, :3].T.astype(np.float64) @ T[:3, 3].astype(np.float64)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    # --- the chain: each frame's carry feeds the next, candidates at the last estimate
+    rec = {k: [] for k in ("eager_ms", "graph_ms", "cand_ms", "upload_ms", "readback_ms",
+                           "unpack_ms", "err_m", "n_matches1", "n_inliers")}
+    stages = {k: [] for k in ("extract", "motion_match", "gn1", "local_match", "gn2", "pack")}
+    first_args = None
+    T_last = carry.Tcw.cpu().numpy()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    for i in range(n):
+        t = time.perf_counter()
+        arrays = candidates.candidate_arrays(T_last)
+        t1 = time.perf_counter()
+        cand = candidates.upload(arrays)
+        sync()
+        t2 = time.perf_counter()
+        args = (frames[i], carry, *cand)
+        if first_args is None:
+            first_args = (frames[i], carry, arrays)
+        out = step(*args)  # the first call captures the graph; every call replays
+        sync()
+        t3 = time.perf_counter()
+        buf = out.packed.cpu().numpy()
+        t4 = time.perf_counter()
+        u = unpack_step(buf, step.n_feat, step.n_cand)
+        t5 = time.perf_counter()
+        err = float(np.linalg.norm(center(u.Tcw) - center(poses[i])))
+        print(f"  frame {TRACK_FIRST + i}: matches1 {u.n_matches1}, inliers1 {u.n_inliers1}, "
+              f"inliers {u.n_inliers}, candidates in view {int(u.cand_in_view.sum())}, "
+              f"camera-center error {err:.4f} m")
+        check(u.n_matches1 >= 20 and u.n_inliers >= 10,
+              f"frame {TRACK_FIRST + i} passes the gate (matches1 >= 20, inliers >= 10)")
+        rec["err_m"].append(err)
+        rec["n_matches1"].append(u.n_matches1)
+        rec["n_inliers"].append(u.n_inliers)
+        if i >= 2:  # two warm-up frames
+            rec["cand_ms"].append((t1 - t) * 1e3)
+            rec["upload_ms"].append((t2 - t1) * 1e3)
+            rec["readback_ms"].append((t4 - t3) * 1e3)
+            rec["unpack_ms"].append((t5 - t4) * 1e3)
+            # the step eagerly, stage by stage between events, then replayed
+            ev[0].record()
+            feats = step.extract(frames[i])
+            ev[1].record()
+            m1 = step.motion_match(feats, carry)
+            ev[2].record()
+            r1 = step.pose(m1.Tp, m1.pts, feats, m1.bound & feats.valid)
+            ev[3].record()
+            m2 = step.local_match(feats, r1.Tcw, m1.bound, *cand)
+            ev[4].record()
+            all_pts = torch.where(m1.bound[:, None], m1.pts, m2.pts)
+            r2 = step.pose(r1.Tcw, all_pts, feats, (m1.bound | m2.bound) & feats.valid)
+            ev[5].record()
+            staged = step.finish(feats, carry, m1, r1, m2, r2)
+            ev[6].record()
+            ev[6].synchronize()
+            for k, (a, b) in zip(stages, zip(ev[:-1], ev[1:])):
+                stages[k].append(a.elapsed_time(b))
+            rec["eager_ms"].append(ev[0].elapsed_time(ev[6]))
+            check(torch.equal(staged.packed.view(torch.int32), out.packed.view(torch.int32)),
+                  f"frame {TRACK_FIRST + i}: the eager step, stage by stage, equals the "
+                  "step's output bit for bit")
+            ev[0].record()
+            step.replay(*args)
+            ev[1].record()
+            ev[1].synchronize()
+            rec["graph_ms"].append(ev[0].elapsed_time(ev[1]))
+        carry = out.carry
+        T_last = u.Tcw
+    launches = dict(kernels.LAUNCHES)
+    print(f"  launches (rendering and the chain): {launches}")
+    check(launches["rasterize_keys"] == n + 2 and launches["sample_texture"] == n + 2,
+          f"B3 and the sampler launched once a rendered frame ({n + 2})")
+    errs = np.array(rec["err_m"])
+    print(f"  camera-center error over {n} frames: median {np.median(errs):.5f} m, "
+          f"max {errs.max():.5f} m")
+    check(errs.max() < TRACK_ERR_M, f"camera-center error under {TRACK_ERR_M} m on every frame")
+    check(step._graph is not None, "the step was captured in a CUDA graph on its first call")
+
+    # --- B3 and the sampler against their plain versions at the circuit's binning
+    world = SyntheticMeshWorld.generate(seed=0)
+    W, H = frames.shape[2], frames.shape[1]
+    K = world.camera_K(W, H)
+    near, far = world.near_far()
+    T = world.pose_at(TRACK_FIRST, TRACK_CIRCUIT)
+    bh = raster.bin_mesh(world.mesh, T, K, H, W, near, far, device=None)
+    bt = bh._replace(tri_data=torch.from_numpy(bh.tri_data).to(dev),
+                     texture=torch.from_numpy(bh.texture).to(dev))
+    kposes = raster.grid_poses(torch.from_numpy(T).to(dev), torch.zeros((1, 3), device=dev))
+    rargs = (bt.tri_data, kposes, bt.capacity, float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+             float(K[1, 2]), near, bt.tiles_x)
+    keys, uu, vv = raster.rasterize_keys(*rargs)
+    d_raster = kernel_cases.raster_mismatch((keys, uu, vv), raster.rasterize_keys_plain(*rargs))
+    check_raster(d_raster, f"frame {TRACK_FIRST}'s binning ({len(world.mesh.faces)} faces, "
+                 f"tiles {bt.tiles_y}x{bt.tiles_x}, capacity {bt.capacity}, overflow "
+                 f"{bt.overflow}), {keys.numel()} pixels")
+    th, tw = bt.tex_hw
+    err_s = (raster.sample_texture(keys, uu, vv, bt.texture, th, tw, 0.0)
+             - raster.sample_texture_plain(keys, uu, vv, bt.texture, th, tw, 0.0)).abs().max().item()
+    check(err_s <= SAMPLER_ATOL, f"frame {TRACK_FIRST}'s binning, sampler ({th}x{tw} texture): "
+          f"max |kernel - plain| {err_s} <= {SAMPLER_ATOL}")
+    raster_check = dict(capacity=bt.capacity, tiles=[bt.tiles_y, bt.tiles_x],
+                        raster_err=d_raster["err"], sampler_err=err_s,
+                        mismatch={k: d_raster[k] for k in ("mask", "u", "v", "depth")})
+    del keys, uu, vv
+
+    # --- eager against graph, bit for bit, on three frames --------------------
+    c = first_args[1]
+    for i in range(3):
+        cand = candidates(poses[i])
+        args = (frames[i], c, *cand)
+        e = step.run_eager(*args)
+        g = step.replay(*args)
+        check(torch.equal(e.packed.view(torch.int32), g.packed.view(torch.int32))
+              and all(torch.equal(a, b) for a, b in zip(e.carry, g.carry)),
+              f"frame {TRACK_FIRST + i}: eager and graph replay equal bit for bit")
+        c = e.carry
+
+    # --- sync-free ------------------------------------------------------------
+    args = (frames[3], c, *candidates(poses[2]))
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.run_eager(*args)
+        step.replay(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    check(True, "one eager step and one replay ran under set_sync_debug_mode('error')")
+
+    # --- TF32 on globally: the same pose ----------------------------------------
+    base = step.run_eager(*args)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = step.run_eager(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    d_tf32 = float((tf32.carry.Tcw - base.carry.Tcw).abs().max())
+    check(d_tf32 <= 1e-6, f"TF32 on globally: Tcw within 1e-6 of the default run ({d_tf32})")
+
+    # --- the card against the CPU, first frame --------------------------------
+    frame0, carry0, arrays0 = first_args
+    cpu = FusedTrackStep(step.cfg, step.n_cand, "cpu")
+    t = time.perf_counter()
+    out_h = cpu(frame0.cpu(), TrackCarry(*(x.cpu() for x in carry0)),
+                *(torch.from_numpy(a) for a in arrays0))
+    cpu_s = time.perf_counter() - t
+    out_c = step(frame0, carry0, *candidates(carry0.Tcw.cpu().numpy()))
+    uc = unpack_step(out_c.packed.cpu().numpy(), step.n_feat, step.n_cand)
+    uh = unpack_step(out_h.packed.numpy(), step.n_feat, step.n_cand)
+    kp = np.concatenate([uc.xy, uc.octave[:, None]], 1) != np.concatenate(
+        [uh.xy, uh.octave[:, None]], 1)
+    bits = np.unpackbits(np.bitwise_xor(uc.desc, uh.desc).view(np.uint8)).sum()
+    vs = dict(
+        keypoint_share=float(kp.any(1).mean()),
+        desc_bit_share=float(bits / (uc.desc.size * 32)),
+        angle_gap=float(np.abs(uc.angle - uh.angle).max()),
+        n_matches1_gap=uc.n_matches1 - uh.n_matches1,
+        n_inliers_gap=uc.n_inliers - uh.n_inliers,
+        tcw_gap=float(np.abs(uc.Tcw - uh.Tcw).max()),
+        cpu_step_s=cpu_s,
+    )
+    print(f"  card against CPU, frame {TRACK_FIRST}: keypoints (x, y, octave) differ on "
+          f"{vs['keypoint_share']:.6f}, descriptor bits on {vs['desc_bit_share']:.3e}, "
+          f"angles by up to {vs['angle_gap']:.3e} rad; matches1 gap {vs['n_matches1_gap']}, "
+          f"inliers gap {vs['n_inliers_gap']}, max |Tcw gap| {vs['tcw_gap']:.3e} "
+          f"(CPU step {cpu_s:.1f} s)")
+    check(vs["keypoint_share"] == 0.0, "card against CPU: keypoints (x, y, octave) equal")
+    check(vs["desc_bit_share"] <= TRACK_CPU_DESC_BITS,
+          f"card against CPU: descriptor bits differ on <= {TRACK_CPU_DESC_BITS}")
+    check(abs(vs["n_matches1_gap"]) <= TRACK_CPU_COUNT_GAP
+          and abs(vs["n_inliers_gap"]) <= TRACK_CPU_COUNT_GAP,
+          f"card against CPU: matches1 and inliers within {TRACK_CPU_COUNT_GAP}")
+    check(vs["tcw_gap"] <= TRACK_CPU_TCW, f"card against CPU: Tcw within {TRACK_CPU_TCW}")
+
+    # --- rendering one frame and its host binning, apart from the step -------------
+    def host_ms(fn, reps=5):
+        """ms of each of `reps` calls after one warm-up, by the host's clock
+        with the device synchronized around each call."""
+        fn()
+        times = []
+        for _ in range(reps):
+            sync()
+            t = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    bin_runs = host_ms(lambda: raster.bin_mesh(world.mesh, T, K, H, W, near, far, device=None))
+    render_runs = host_ms(lambda: world.render_frames([TRACK_FIRST], TRACK_CIRCUIT, W, H,
+                                                      device=dev))
+    bin_ms, render_ms = float(np.mean(bin_runs)), float(np.mean(render_runs))
+
+    mean = {k: float(np.mean(v)) for k, v in rec.items() if k not in ("err_m", "n_matches1",
+                                                                      "n_inliers")}
+    stage_ms = {k: float(np.mean(v)) for k, v in stages.items()}
+    print(f"  step ms, mean over frames {TRACK_FIRST + 2}-{TRACK_FIRST + n - 1} (CUDA events): "
+          f"eager {mean['eager_ms']:.3f}, replayed {mean['graph_ms']:.3f}; eager by stage: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items()) + f"  [{smi}]")
+    print(f"  host ms a frame: candidate build {mean['cand_ms']:.3f}, upload "
+          f"{mean['upload_ms']:.3f}, readback {mean['readback_ms']:.3f}, unpack_step "
+          f"{mean['unpack_ms']:.3f}  [{smi}]")
+    print(f"  rendering one frame (render_frames: host binning, upload, B3, sampler), ms: mean "
+          f"{render_ms:.3f} (runs {[round(t, 3) for t in render_runs]}); its host binning "
+          f"alone (bin_mesh): mean {bin_ms:.3f} (runs {[round(t, 3) for t in bin_runs]}); "
+          f"each after 1 warm-up  [{smi}]")
+    print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+    return dict(frames=n, first=TRACK_FIRST, err_median_m=float(np.median(errs)),
+                err_max_m=float(errs.max()), n_matches1_min=int(min(rec["n_matches1"])),
+                n_inliers_min=int(min(rec["n_inliers"])), step_ms=mean, stage_ms=stage_ms,
+                render_ms=render_ms, render_runs_ms=render_runs, bin_ms=bin_ms,
+                bin_runs_ms=bin_runs, raster_check=raster_check, launches=launches,
+                tf32_tcw_gap=d_tf32, card_vs_cpu=vs)
 
 
 def main() -> int:
@@ -595,6 +869,12 @@ def main() -> int:
 
     print(f"build, kernel checks and the step took {time.perf_counter() - t_start:.1f} s")
     loc_record = localizer_phases(dev, smi, cuda_ms, check)
+    track_record = tracking_phase(dev, smi, check, check_raster)
+    rc = track_record["raster_check"]
+    rows["rasterize_keys"]["max_abs_err"] = max(rows["rasterize_keys"]["max_abs_err"],
+                                                rc["raster_err"])
+    rows["sample_texture"]["max_abs_err"] = max(rows["sample_texture"]["max_abs_err"],
+                                                rc["sampler_err"])
 
     out = []
     for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "sample_texture"):
@@ -606,6 +886,7 @@ def main() -> int:
                     "library_ms": r["library_ms"]})
     print(json.dumps({"step_ms": stage, "card": smi}))
     print(json.dumps({"localizer": loc_record, "card": smi}))
+    print(json.dumps({"tracking": track_record, "card": smi}))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of `orbslam2_nmi_tpu` for one NVIDIA H100.
 
 The JAX package beside this one is the reference; every ported module keeps
-the relative path of its counterpart there (`ops/`, `io/`, `geometry/`). This
+the relative path of its counterpart there (`ops/`, `io/`, `geometry/`,
+`solvers/`, `slam/`). This
 package imports neither `jax` nor `orbslam2_nmi_tpu`, and importing it changes
 no process-wide setting: geometry stays in full float32 and TF32 stays off.
 

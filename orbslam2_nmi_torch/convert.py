@@ -3,9 +3,9 @@
 The two packages share no objects; state passes between them as numpy arrays
 and plain dicts: the binned mesh (the JAX `BinnedMesh` built with
 `device_arrays=False`, whose fields are numpy arrays and Python scalars), the
-point-splat render model, and the camera and NMI configurations (the
-`dataclasses.asdict` of the JAX dataclasses), so that both packages render,
-score and search with the same state in the parity tests.
+point-splat render model, the configurations (the `dataclasses.asdict` of
+the JAX dataclasses) and the tracking step's carry, so that both packages
+render, score, search and track with the same state in the parity tests.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from orbslam2_nmi_torch import config
 from orbslam2_nmi_torch.io.model_loader import PointCloudModel
 from orbslam2_nmi_torch.ops import raster, render
+from orbslam2_nmi_torch.slam.fused_track import TrackCarry
 
 _DTYPES = {
     "tri_data": np.float32, "tri_ids": np.int32, "verts": np.float32, "uvs": np.float32,
@@ -57,3 +58,35 @@ def nmi_config_from_dict(d: dict) -> config.NMIConfig:
     `grid` a nested dict)."""
     grid = {k: tuple(v) for k, v in d["grid"].items()}
     return config.NMIConfig(**{**d, "grid": config.NMIGridConfig(**grid)})
+
+
+def system_config_from_dict(d: dict) -> config.SystemConfig:
+    """The port's SystemConfig from `dataclasses.asdict` of the reference's
+    (its sections nested dicts)."""
+    return config.SystemConfig(
+        camera=camera_config_from_dict(d["camera"]),
+        orb=config.ORBConfig(**d["orb"]),
+        nmi=nmi_config_from_dict(d["nmi"]),
+        viewer=config.ViewerConfig(**{**d["viewer"], "viewpoint": tuple(d["viewer"]["viewpoint"])}),
+        tracking=config.TrackingConfig(**d["tracking"]),
+        vocabulary_path=d["vocabulary_path"],
+        output_dir=d["output_dir"],
+    )
+
+
+def track_carry_from_numpy(fields: dict, device: str | torch.device = "cuda") -> TrackCarry:
+    """The port's TrackCarry, on `device`, from a dict of the reference's
+    TrackCarry fields as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
+    carry._asdict().items()}`). The uint32 descriptor words keep their bits
+    as int32."""
+    missing = set(TrackCarry._fields) - set(fields)
+    if missing:
+        raise ValueError(f"carry fields missing: {sorted(missing)}")
+    dtypes = {"Tcw": np.float32, "velocity": np.float32, "xy": np.float32, "octave": np.int32,
+              "angle": np.float32, "pts": np.float32, "bound": bool}
+    out = {}
+    for k in TrackCarry._fields:
+        a = np.asarray(fields[k])
+        a = a.astype(np.uint32).view(np.int32) if k == "desc" else a.astype(dtypes[k])
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return TrackCarry(**out)

@@ -1,6 +1,7 @@
-"""The NMI pose-grid step, the port's main path.
+"""The port's entry points: the NMI pose-grid step, the localizer, the
+tracking step.
 
-Mirrors `__graft_entry__.entry()` of the JAX package: one full evaluation of
+`entry()` mirrors `__graft_entry__.entry()` of the JAX package: one full evaluation of
 the pose grid around a prior pose. It renders every translation candidate of
 the textured prior mesh (kernel B3 and the sampler), warps the live frame by
 every rotation hypothesis, scores every (render, warp) pair by NMI (kernels
@@ -16,8 +17,18 @@ same scene, camera and steps, which turns grid steps into an anchored pose:
     loc, frame, T_true = localizer_entry()          # textured mesh, 960x540
     out = loc.relocalize_strategy(frame, T_pert, initializing=True)
 
-Both run on CUDA unless the caller passes `device="cpu"` (the CPU runs the
-kernels' plain versions; the tests use it at small sizes).
+`tracking_entry()` builds the per-frame tracking step
+(`slam/fused_track.FusedTrackStep`) on the JAX package's full-circuit
+configuration (`tools/replay_bench.py:47-137`): the 190x190 terrain mesh, fx
+450 at 960x540, 2,000 ORB features on 8 levels, 2,048 local-map candidates.
+The frames are rendered by the port's rasterizer (B3 and the sampler), and the
+step is seeded from ground truth instead of a map:
+
+    step, frames, carry, candidates, poses = tracking_entry()
+    out = step(frames[0], carry, *candidates(carry.Tcw.cpu().numpy()))
+
+All three run on CUDA unless the caller passes `device="cpu"` (the CPU runs
+the kernels' plain versions; the tests use it at small sizes).
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch import kernels
-from orbslam2_nmi_torch.config import CameraConfig, NMIConfig
+from orbslam2_nmi_torch.config import (CameraConfig, NMIConfig, ORBConfig, SystemConfig,
+                                       TrackingConfig)
 from orbslam2_nmi_torch.io.model_loader import MeshModel
+from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, raycast_terrain
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
+from orbslam2_nmi_torch.slam.fused_track import FusedTrackStep, TrackCarry
 from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 
 NEAR, FAR = 5.0, 40.0
@@ -151,3 +165,172 @@ def localizer_entry(device: str | torch.device = "cuda", height: int = 540, widt
         raise ValueError(f"render_mode must be 1 (textured mesh) or 4 (pointcloud), "
                          f"got {render_mode}")
     return loc, frame, T_true
+
+
+# ---------------------------------------------------------------------------
+# The per-frame tracking step, seeded from ground truth
+# ---------------------------------------------------------------------------
+
+KEYFRAME_EVERY = 10  # frames between the ground-truth "keyframes" of the local map
+FRUSTUM_MARGIN = 64.0  # px, the candidate pre-filter's (frontend_pipelined.py:193-215)
+
+
+def tracking_config(world: SyntheticMeshWorld, height: int, width: int,
+                    n_features: int = 2000) -> SystemConfig:
+    """The full-circuit configuration of `tools/replay_bench.py:96-140`
+    for the step: the world's camera at `width` x `height`, 30 fps, ORB with
+    `n_features` on 8 levels, and the default tracking settings (4 rounds x
+    10 iterations of pose GN)."""
+    K = world.camera_K(width, height)
+    return SystemConfig(
+        camera=CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                            cy=float(K[1, 2]), width=width, height=height, fps=30.0),
+        orb=ORBConfig(n_features=n_features, n_levels=8),
+        tracking=TrackingConfig(),
+    )
+
+
+def _center(T: np.ndarray) -> np.ndarray:
+    return -T[:3, :3].T.astype(np.float64) @ T[:3, 3].astype(np.float64)
+
+
+def ground_truth_landmarks(K: np.ndarray, Tcw: np.ndarray, xy: np.ndarray) -> np.ndarray:
+    """World points [N, 3] f32 of pixels `xy` [N, 2] seen from the true pose
+    `Tcw`: their rays cast onto the analytic terrain."""
+    px = np.concatenate([xy.astype(np.float64), np.ones((len(xy), 1))], -1)
+    dirs_c = px @ np.linalg.inv(K.astype(np.float64)).T
+    dirs_w = dirs_c @ Tcw[:3, :3].astype(np.float64)  # rows of Rwc @ d
+    return raycast_terrain(_center(Tcw), dirs_w).astype(np.float32)
+
+
+def _features_host(step: FusedTrackStep, frame_u8: torch.Tensor) -> dict:
+    f = step.extract(frame_u8)
+    return {k: getattr(f, k).cpu().numpy() for k in ("xy", "octave", "angle", "desc", "valid")}
+
+
+def seed_carry(step: FusedTrackStep, frame_u8: torch.Tensor, Tcw: np.ndarray,
+               Tcw_prev: np.ndarray) -> TrackCarry:
+    """The carry after a frame tracked exactly: the step's own features of
+    `frame_u8`, every valid one bound to its ray-cast landmark, the true pose
+    `Tcw`, and the true motion from `Tcw_prev` as the velocity."""
+    f = _features_host(step, frame_u8)
+    pts = ground_truth_landmarks(step.K, Tcw, f["xy"])
+    pts[~f["valid"]] = 0.0
+    velocity = (Tcw.astype(np.float64) @ np.linalg.inv(Tcw_prev.astype(np.float64))).astype(
+        np.float32)
+    dev = step.device
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return TrackCarry(Tcw=up(Tcw.astype(np.float32)), velocity=up(velocity), xy=up(f["xy"]),
+                      octave=up(f["octave"]), angle=up(f["angle"]), desc=up(f["desc"]),
+                      pts=up(pts), bound=up(f["valid"]))
+
+
+class GroundTruthMap:
+    """A stand-in for the local map: the features of ground-truth
+    "keyframes", each bound to its ray-cast landmark, with the map point
+    statistics of `map_store.py:385-398` for one observation (normal, and
+    min/max distance from the keyframe's distance and octave).
+
+    `candidate_arrays(Tcw_last)` builds the step's candidate set on the host
+    as `PipelinedFrontend._local_candidates` does (`frontend_pipelined.py:
+    193-233`): keyframes nearest to the last pose first, a frustum pre-filter
+    at `Tcw_last` with a 64 px margin when the set exceeds `n_cand`, then
+    truncated and padded to `n_cand`. Calling the map with `Tcw_last` builds
+    them and uploads them to the step's device (`upload`).
+    """
+
+    def __init__(self, step: FusedTrackStep, frames_u8, poses):
+        cfg = step.cfg
+        sf, n_levels = cfg.orb.scale_factor, cfg.orb.n_levels
+        self.step = step
+        self.centers, self.points = [], []
+        for frame, T in zip(frames_u8, poses):
+            f = _features_host(step, frame)
+            v = f["valid"]
+            pts = ground_truth_landmarks(step.K, T, f["xy"][v])
+            c = _center(T)
+            vec = pts.astype(np.float64) - c
+            dist = np.linalg.norm(vec, axis=-1)
+            max_d = dist * sf ** f["octave"][v].astype(np.float64)
+            self.centers.append(c)
+            self.points.append(dict(
+                pts=pts, desc=f["desc"][v], normal=(vec / np.maximum(dist, 1e-9)[:, None]),
+                max_d=max_d, min_d=max_d / sf ** (n_levels - 1)))
+
+    def candidate_arrays(self, Tcw_last: np.ndarray):
+        """(pts [C, 3], desc [C, 8] int32, min_d [C], max_d [C], normal [C, 3],
+        valid [C]) numpy arrays, C = n_cand."""
+        C = self.step.n_cand
+        order = np.argsort([np.linalg.norm(c - _center(Tcw_last)) for c in self.centers],
+                           kind="stable")
+        cat = {k: np.concatenate([self.points[i][k] for i in order])
+               for k in ("pts", "desc", "normal", "max_d", "min_d")}
+        if len(cat["pts"]) > C:
+            cam = self.step.cfg.camera
+            pc = cat["pts"] @ Tcw_last[:3, :3].T + Tcw_last[:3, 3]
+            z = np.maximum(pc[:, 2], 1e-9)
+            u = cam.K[0, 0] * pc[:, 0] / z + cam.K[0, 2]
+            v = cam.K[1, 1] * pc[:, 1] / z + cam.K[1, 2]
+            m = FRUSTUM_MARGIN
+            vis = ((pc[:, 2] > 0) & (u >= -m) & (u < cam.width + m) & (v >= -m)
+                   & (v < cam.height + m))
+            cat = {k: a[vis] for k, a in cat.items()}
+        k = min(len(cat["pts"]), C)
+        pts = np.zeros((C, 3), np.float32)
+        desc = np.zeros((C, 8), np.int32)
+        min_d = np.ones(C, np.float32)
+        max_d = np.ones(C, np.float32)
+        normal = np.zeros((C, 3), np.float32)
+        valid = np.zeros(C, bool)
+        pts[:k], desc[:k], normal[:k] = cat["pts"][:k], cat["desc"][:k], cat["normal"][:k]
+        min_d[:k], max_d[:k], valid[:k] = cat["min_d"][:k], cat["max_d"][:k], True
+        return pts, desc, min_d, max_d, normal, valid
+
+    def upload(self, arrays):
+        """Candidate arrays as tensors on the step's device. On CUDA they go
+        through pinned memory with non-blocking copies, so the upload does
+        not wait for the device."""
+        dev = self.step.device
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(a)
+            if dev.type == "cuda":
+                t = t.pin_memory()
+            out.append(t.to(dev, non_blocking=True))
+        return tuple(out)
+
+    def __call__(self, Tcw_last: np.ndarray):
+        return self.upload(self.candidate_arrays(Tcw_last))
+
+
+def tracking_entry(device: str | torch.device = "cuda", height: int = 540, width: int = 960,
+                   n_frames: int = 520, first: int = 8, count: int = 48,
+                   world: SyntheticMeshWorld | None = None, n_features: int = 2000,
+                   n_cand: int = 2048):
+    """(step, frames, carry0, candidates, poses_gt): the tracking step seeded
+    from ground truth on the standard circuit of `n_frames` frames.
+
+    - `frames`: [count, H, W] uint8 on `device`, frames first .. first+count-1
+      of the circuit, rendered (with frame first-2 and first-1, which only
+      seed) by `SyntheticMeshWorld.render_frames`;
+    - `carry0`: `seed_carry` of frame first-1 at its true pose, the velocity
+      the true motion from frame first-2;
+    - `candidates`: the local-map stand-in (`GroundTruthMap`) built from
+      keyframes every 10 frames from first-1 to the window's end; called with
+      the last pose, it returns the step's six candidate tensors;
+    - `poses_gt`: [count, 4, 4] f32 true poses of `frames`.
+    `world` defaults to `SyntheticMeshWorld.generate(seed=0)` (190x190 grid);
+    the tests pass a coarser terrain with fewer features and candidates.
+    """
+    device = kernels.resolve_device(device, "tracking_entry()")
+    if first < 2 or count < 1:
+        raise ValueError(f"need first >= 2 and count >= 1, got first={first}, count={count}")
+    world = SyntheticMeshWorld.generate(seed=0) if world is None else world
+    step = FusedTrackStep(tracking_config(world, height, width, n_features), n_cand, device)
+    ids = list(range(first - 2, first + count))
+    rendered = world.render_frames(ids, n_frames, width, height, device=device)
+    poses = np.stack([world.pose_at(i, n_frames) for i in ids])
+    carry0 = seed_carry(step, rendered[1], poses[1], poses[0])
+    kf = list(range(1, len(ids), KEYFRAME_EVERY))
+    gt_map = GroundTruthMap(step, [rendered[j] for j in kf], poses[kf])
+    return step, rendered[2:], carry0, gt_map, poses[2:]

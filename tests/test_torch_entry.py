@@ -143,10 +143,10 @@ def test_entry_raises_without_cuda(monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Running the port's entry and its localizer (one strategy on the
-    textured mesh, and one grid on the point model) on the CPU leaves jax and
-    the JAX package out of sys.modules, and no file of the port (nor
-    chip_smoke.py) imports them."""
+    """Running the port's entry, its localizer (one strategy on the textured
+    mesh, and one grid on the point model) and its tracking step (one frame
+    of `tracking_entry`) on the CPU leaves jax and the JAX package out of
+    sys.modules, and no file of the port (nor chip_smoke.py) imports them."""
     code = (
         "import sys, json\n"
         "import numpy as np, torch\n"
@@ -164,6 +164,11 @@ def test_port_never_imports_jax():
         "loc.model = render.model_from_pointcloud(pts, 'cpu')\n"
         "loc.mesh = None\n"
         "assert loc.evaluate_grid(frame, T, loc.initial_kernel).shape == (27, 27)\n"
+        "from orbslam2_nmi_torch.entry import tracking_entry\n"
+        "step, frames, carry, cands, poses = tracking_entry(device='cpu', height=120,"
+        " width=160, count=2)\n"
+        "out = step(frames[0], carry, *cands(carry.Tcw.numpy()))\n"
+        "assert out.packed.shape == (35 + 17 * step.n_feat + step.n_cand,), out.packed.shape\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )

@@ -67,3 +67,22 @@ def mesh_frame(mesh, device="cpu"):
     b = raster.bin_mesh(MeshModel(*mesh), np.eye(4, dtype=np.float32), K, c["height"],
                         c["width"], 1.0, 50.0, device=device)
     return raster.render_mesh_grid(b, torch.eye(4), K, torch.zeros(1, 3), 1.0, 50.0)[0]
+
+
+# The reduced tracking scene of the fused-step tests: the circuit on a 60x60
+# terrain grid at half the full camera's width and focal length (480x270, fx
+# 225, so the field of view is the full camera's), 500 features on 8 levels,
+# 256 local-map candidates, seeded from ground truth like tracking_entry().
+TRACK_SCENE = dict(height=270, width=480, n_grid=60, fx=225.0, n_features=500, n_cand=256)
+
+
+def tracking_scene(count=5, device="cpu"):
+    """`entry.tracking_entry` on the reduced scene: (step, frames, carry0,
+    candidates, poses_gt), frames 8 .. 8+count-1 of the 520-frame circuit."""
+    from orbslam2_nmi_torch.entry import tracking_entry
+    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, terrain_mesh
+
+    s = TRACK_SCENE
+    world = SyntheticMeshWorld(mesh=terrain_mesh(seed=0, n=s["n_grid"]), fx=s["fx"])
+    return tracking_entry(device=device, height=s["height"], width=s["width"], count=count,
+                          world=world, n_features=s["n_features"], n_cand=s["n_cand"])
