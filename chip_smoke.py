@@ -59,10 +59,27 @@ Run from the root of a checkout. It
      holds the last keyframe's local BA on the card against the CPU (one LM
      step within `MAP_BA_STEP_POSE`; the whole solve's LM traces, gaps and
      costs printed), repeated and with TF32 on (max |diff| 0); times the
-     kernels at the latches' shapes;
-  9. prints a JSON line of the step times, one of the localizer's, one of the
-     tracking phase's, one of the mapping phase's, one JSON line listing the
-     kernels, then the final JSON line {"ok": true, ...}.
+     kernels at the latches' shapes. The session is `entry.loop_entry()`'s,
+     so place recognition is wired: the vocabulary trains where the
+     reference trains it, and the phase prints when, on which thread and at
+     which frame;
+  9. on that session, place recognition and loop closing: relocalizes frame
+     500 against the map by BoW and PnP (error to truth under 0.1 m; the
+     card against the CPU on the same matches and samples); adds the drifted
+     revisit arc (`entry.add_revisit_arc`, frames 476-518 rendered by B3 and
+     the sampler, launch counts set to 0 just before and read after); runs
+     the loop closer on each arc keyframe with the reference's consistency
+     of 3 and waits for the global BA; checks that exactly one loop closed,
+     against a keyframe of frames 0-68, that the arc's error fell below half,
+     that at most half of the seam's duplicates survive, that the NMI
+     keyframes did not move; holds ComputeSim3 of the closing pair and the
+     closure's essential graph on the card against the CPU (bars `LOOP_*`,
+     a one-ulp control beside them) and with TF32 on; prints the C2 counts
+     and times `optimize_pose_graph` at V 424 on the card and the CPU;
+ 10. prints a JSON line of the step times, one of the localizer's, one of the
+     tracking phase's, one of the mapping phase's, one of the loop phase's,
+     one JSON line listing the kernels, then the final JSON line
+     {"ok": true, ...}.
 The grid step and the localizer's case (b) also run with TF32 turned on for
 the whole process, and must give the same scores and pose (fault C1).
 Any failed check raises, and the script exits non-zero without the final
@@ -70,6 +87,7 @@ line. It also exits non-zero when CUDA is absent or the package is missing.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -115,6 +133,31 @@ MAP_ERR_M = 0.0625
 # It must not raise the robust cost (final over start: 0.70 to 0.95 in
 # every local solve).
 MAP_BA_STEP_POSE = 3.5e-6
+
+# The loop phase: the PnP relocalization of frame 500 (the pose of frame 28.2)
+# against the map of frames 0-68, and the bars on its error to truth and on
+# the card against the CPU on the same matches and samples. Each bar sits
+# above the gaps this script measured on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W), beside the CPU's own gap when the inputs move by one float32 ulp,
+# which is what a threshold tie (one inlier more or less) costs:
+#   PnP Tcw: 4.5e-5, 7.5e-6, 8.3e-6 and 1.6e-3 with equal inlier counts (the
+#     pose-only LM's accept decisions part); the one-ulp control 4.8e-4,
+#     2.3e-3, 7.9e-6 and 2.3e-3;
+#   ComputeSim3 of the closing pair: every count equal; Scw 1.43e-6, 6.6e-7;
+#     the one-ulp control 1.5e-5, 1.4e-5;
+#   the essential graph of the closure: 9.5e-7 twice; the one-ulp control
+#     9.5e-7, 1.9e-6.
+LOOP_PNP_FRAME = 500
+LOOP_PNP_ERR_M = 0.1
+LOOP_PNP_TCW = 5e-3
+LOOP_SIM3_COUNTS = 2  # raw, RANSAC, expanded, optimized and total matches: ties only
+LOOP_SIM3_SCW = 1e-5
+LOOP_EG_SCW = 3e-6
+ARC_DRIFT_TEXT = "scale 1.04, 0.03 rad about world z, (0.5, -0.3, 0.1) m"
+# The keyframe count of the JAX package's live loop run
+# (LOOP_r05.json full_feature_run.n_keyframes_created), for one timed
+# optimize_pose_graph.
+LOOP_PG_V = 424
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at the 700 W limit), for bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -670,7 +713,7 @@ def mapping_phase(dev, smi, check, cuda_ms):
     import torch
 
     from orbslam2_nmi_torch import kernels, native
-    from orbslam2_nmi_torch.entry import INIT_FRAMES, mapping_entry
+    from orbslam2_nmi_torch.entry import INIT_FRAMES, loop_entry
     from orbslam2_nmi_torch.ops import histogram_nmi as hn
     from orbslam2_nmi_torch.ops import raster
     from orbslam2_nmi_torch.solvers import local_ba
@@ -698,7 +741,7 @@ def mapping_phase(dev, smi, check, cuda_ms):
     # --- render frames 0, 8-68 of the circuit -----------------------------------
     kernels.reset_launches()
     t = time.perf_counter()
-    session = mapping_entry(device=dev, last=MAP_LAST)
+    session = loop_entry(device=dev, last=MAP_LAST)
     sync()
     rec["entry_s"] = time.perf_counter() - t
     launches = dict(kernels.LAUNCHES)
@@ -844,6 +887,22 @@ def mapping_phase(dev, smi, check, cuda_ms):
           f"6 keyframes made and processed by the worker ({len(records)})")
     check(anchors_ok, "the NMI keyframes' poses equal the latched poses, bit for bit, after "
           "every frame and BA")
+    sysm = session.system
+    vr = sysm.vocab_record
+    check(vr is not None, "the vocabulary trained during the mapping phase (ensure_vocabulary)")
+    lc_recs = sysm.loop_closer.records
+    print(f"  vocabulary: {vr['words']} words (k=8, depth 4) from {vr['descriptors']} "
+          f"descriptors, trained in {vr['train_s']:.3f} s ({vr['total_s']:.3f} s with the "
+          f"database's backfill) on thread '{vr['thread']}' at frame {vr['frame']} "
+          f"({vr['keyframes']} keyframes then); the worker's loop closer then processed "
+          f"{len(lc_recs)} keyframes (no detection below 10 keyframes), database add "
+          f"{np.mean([r['db_add_ms'] for r in lc_recs]) if lc_recs else 0:.2f} ms a keyframe  "
+          f"[{smi}]")
+    with m.lock:
+        in_db = [int(k) for k in m.valid_keyframe_indices() if sysm.database.active[k]]
+    check(in_db == [int(k) for k in m.valid_keyframe_indices()],
+          f"every mapped keyframe is in the database ({len(in_db)})")
+    rec["vocabulary"] = dict(vr, db_add_ms=[r["db_add_ms"] for r in lc_recs])
     rec["tracking"] = dict(frames=len(frames), err_median_m=float(np.median(errs)),
                            err_max_m=float(errs.max()),
                            n_matches1_min=int(min(r["n_matches1"] for r in frames)),
@@ -990,7 +1049,321 @@ def mapping_phase(dev, smi, check, cuda_ms):
                       for k, v in shapes.items()) + f"  [{smi}]")
     rec["kernels_at_latch_shapes"] = dict(renders=S, warps=R, width=sw.width, height=sw.height,
                                           **shapes)
-    session.shutdown()
+    print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+    return rec, session
+
+
+def loop_phase(dev, smi, check, session):
+    """Phase 9: place recognition and loop closing on the mapping phase's map
+    (`entry.loop_entry`, 960x540). Returns its record for the JSON line."""
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import convert, kernels
+    from orbslam2_nmi_torch.entry import INIT_FRAMES, add_revisit_arc, relocalize_pnp
+    from orbslam2_nmi_torch.slam.checkpoint import _MAP_FIELDS
+    from orbslam2_nmi_torch.slam.loop_closing import LoopCloser
+    from orbslam2_nmi_torch.solvers import pnp, pose_graph
+    from orbslam2_nmi_torch.utils.readback import to_host
+
+    t_phase = time.perf_counter()
+    print("loop: place recognition and loop closing (entry.loop_entry, add_revisit_arc)")
+    rec = {}
+    m, cfg, sysm = session.map, session.cfg, session.system
+    lc = sysm.loop_closer
+    world, n_frames = session.world, session.n_frames
+    cpu = torch.device("cpu")
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def center(T):
+        return -T[:3, :3].T.astype(np.float64) @ T[:3, 3].astype(np.float64)
+
+    def twin(i):  # the frame of the circuit's first lap at frame i's pose
+        return i - (n_frames - 1) / (1.0 + world.overlap)
+
+    def up(d, device):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in d.items()}
+
+    def max_gap(a, b):
+        return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+    # --- PnP: relocalize frame 500 against the map of frames 0-68 ---------------
+    img = world.render_frames([LOOP_PNP_FRAME], n_frames, cfg.camera.width, cfg.camera.height,
+                              device=dev)[0]
+    t = time.perf_counter()
+    tries = relocalize_pnp(session, LOOP_PNP_FRAME, frame=img)
+    sync()
+    pnp_ms = (time.perf_counter() - t) * 1e3
+    got = [r for r in tries if r.get("ok")]
+    print(f"  PnP of frame {LOOP_PNP_FRAME} (the pose of frame {twin(LOOP_PNP_FRAME):.1f}): "
+          f"candidates tried " + ", ".join(
+              f"KF {r['cand']} (frame {r['frame']}): {r['matches']} matches"
+              + (f", {r['n_inliers']} inliers" if "n_inliers" in r else "") for r in tries)
+          + f"; {pnp_ms:.1f} ms in all  [{smi}]")
+    check(bool(got), "a relocalization candidate gave a PnP pose (>= 15 matches, >= 10 "
+          "inliers)")
+    r = got[0]
+    T_true = world.pose_at(LOOP_PNP_FRAME, n_frames)
+    pnp_err = float(np.linalg.norm(center(r["Tcw"]) - center(T_true)))
+    inp = r["inputs"]
+
+    def pnp_on(device, inputs=inp):
+        d = up(inputs, device)
+        res = pnp.pnp_ransac(d["samples"], cfg.camera.K, d["pts_w"], d["uv"], d["inv_sigma2"],
+                             d["valid"], min_inliers=10)
+        return to_host(res.Tcw), int(to_host(res.n_inliers))
+
+    T_cpu, n_cpu = pnp_on(cpu)
+    T_ulp, _ = pnp_on(cpu, dict(inp, pts_w=np.nextafter(inp["pts_w"], np.float32(np.inf))))
+    with tf32_on():
+        T_tf32, _ = pnp_on(dev)
+    g_pnp, g_ulp, g_tf = max_gap(r["Tcw"], T_cpu), max_gap(T_cpu, T_ulp), max_gap(T_tf32, r["Tcw"])
+    print(f"  PnP pose: camera-centre error {pnp_err:.4f} m against truth; card against CPU "
+          f"(same matches and samples) max |Tcw gap| {g_pnp:.3e}, inliers {r['n_inliers']} vs "
+          f"{n_cpu}; the CPU on points moved by one ulp {g_ulp:.3e}; TF32 on {g_tf}")
+    check(pnp_err < LOOP_PNP_ERR_M, f"PnP camera-centre error {pnp_err:.4f} < {LOOP_PNP_ERR_M} m")
+    check(g_pnp <= LOOP_PNP_TCW, f"PnP Tcw, card against CPU: {g_pnp:.3e} <= {LOOP_PNP_TCW}")
+    check(g_tf == 0.0, "PnP with TF32 on: max |diff| 0")
+    rec["pnp"] = dict(frame=LOOP_PNP_FRAME, tries=[{k: v for k, v in x.items()
+                                                    if k not in ("inputs", "Tcw")} for x in tries],
+                      err_m=pnp_err, ms=pnp_ms, cpu_gap=g_pnp, ulp_gap=g_ulp, tf32_gap=g_tf)
+
+    # --- the revisit arc ------------------------------------------------------
+    with m.lock:
+        n_old = int(m.n_keyframes)
+        old_frames = [int(m.kf_frame_id[k]) for k in range(n_old)]
+        init_T = {k: m.kf_Tcw[k].copy() for k in range(n_old) if m.kf_nmi_reloc[k]}
+    kernels.reset_launches()
+    t = time.perf_counter()
+    arc = add_revisit_arc(session)
+    sync()
+    arc_s = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    print(f"  revisit arc: frames {[i for i, _ in arc]} as keyframes {[k for _, k in arc]} with "
+          f"drift {ARC_DRIFT_TEXT}; {arc_s:.2f} s (rendering, features, points); launches "
+          f"{launches}")
+    check(launches["rasterize_keys"] == len(arc) and launches["sample_texture"] == len(arc),
+          "B3 and the sampler launched once an arc frame")
+
+    def arc_errors():
+        with m.lock:
+            return [float(np.linalg.norm(center(m.kf_Tcw[k]) - center(world.pose_at(i, n_frames))))
+                    for i, k in arc]
+
+    def repeated_pairs():  # (keyframe, point) pairs bound more than once in a keyframe
+        n = 0
+        with m.lock:
+            for k in m.valid_keyframe_indices():
+                ps = m.kf_mp_idx[k][m.kf_mp_idx[k] >= 0]
+                n += len(ps) - len(np.unique(ps))
+            return n, int((m.kf_mp_idx[: m.n_keyframes] >= 0).sum())
+
+    with m.lock:
+        old_obs = [k for _, k in arc if (np.isin(m.kf_mp_idx[k][m.kf_mp_idx[k] >= 0],
+                                                 m.kf_mp_idx[:n_old])).any()]
+    check(not old_obs, "no arc keyframe observes a point of frames 0-68")
+    err0 = arc_errors()
+    c2_before = repeated_pairs()
+    snap = {}
+    compute = lc._compute_sim3
+
+    def recorded_compute(k, cand):  # keep the inputs of the call that accepts
+        with m.lock:
+            fields = {f: getattr(m, f).copy() for f in _MAP_FIELDS}
+            fields.update(n_keyframes=m.n_keyframes, n_points=m.n_points)
+        gen = lc.generator.get_state()
+        out = compute(k, cand)
+        if out[0]:
+            snap.update(k=k, cand=cand, fields=fields, gen=gen, rec=dict(lc._rec),
+                        Scw=out[1].copy(), matched=out[2].copy())
+        return out
+
+    lc._compute_sim3 = recorded_compute
+    lc.covisibility_consistency_th = 3
+    closed, proc_ms, c2_after = [], [], None
+    try:
+        for i, k in arc:
+            t = time.perf_counter()
+            with m.lock:
+                if lc.process_keyframe(k):
+                    closed.append((i, k))
+                    c2_after = repeated_pairs()  # after loop fusion and SearchAndFuse
+            proc_ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        del lc._compute_sim3
+    t = time.perf_counter()
+    session.flush()  # waits for the global BA's thread
+    gba_wait_s = time.perf_counter() - t
+    arc_recs = lc.records[-len(arc):]
+    err1 = arc_errors()
+    for (i, k), r, ms in zip(arc, arc_recs, proc_ms):
+        parts = r.get("correct_ms")
+        print(f"  KF {k} (frame {i}, twin of {twin(i):.1f}): DetectLoop candidates "
+              f"{r.get('db_candidates')}, consistent {r['candidates']}"
+              + (f" ({r['detect_ms']:.2f} ms)" if "detect_ms" in r else "")
+              + (f", ComputeSim3 {[round(x, 1) for x in r['sim3_ms']]} ms" if r["sim3_ms"] else "")
+              + (f", closed with KF {r['closed_with']}" if r["closed_with"] >= 0 else "")
+              + (", CorrectLoop ms " + ", ".join(f"{a} {b:.1f}" for a, b in parts.items())
+                 if parts else "")
+              + f", database add {r['db_add_ms']:.2f} ms; {ms:.1f} ms in all  [{smi}]")
+    gb = session.pipeline.gba_records
+    print(f"  global BAs: " + ", ".join(
+        f"(C, P, O) = ({g['C']}, {g['P']}, {g['O']}) solve {g.get('solve_ms', 0):.1f} ms, "
+        f"applied {g['applied']}" for g in gb) + f"; waited {gba_wait_s:.2f} s  [{smi}]")
+    check(not session.pipeline.errors(), "the mapping worker and the global BA reported no error")
+    check(len(closed) == 1, f"exactly one loop closed ({len(closed)})")
+    i_c, k_c = closed[0]
+    cand = arc_recs[[k for _, k in arc].index(k_c)]["closed_with"]
+    print(f"  loop closed at KF {k_c} (frame {i_c}, twin of {twin(i_c):.1f}) with KF {cand} "
+          f"(frame {old_frames[cand] if cand < n_old else -1}); arc camera-centre errors before "
+          f"{[round(e, 4) for e in err0]} m, after {[round(e, 4) for e in err1]} m "
+          f"(mean {np.mean(err0):.4f} -> {np.mean(err1):.4f} m)")
+    check(cand < n_old and 0 <= old_frames[cand] <= MAP_LAST,
+          "the loop closed against a keyframe of frames 0-68")
+    check(np.mean(err1) < 0.5 * np.mean(err0), "the arc's mean camera-centre error after the "
+          "correction is below half of what it was before")
+    f = snap["fields"]
+    own = (f["mp_first_kf"] == k_c) & f["mp_valid"]
+    # the seam's duplicates: own points at the features that ComputeSim3
+    # matched to a loop-side point (mvpCurrentMatchedPoints)
+    row = f["kf_mp_idx"][k_c]
+    dup = np.zeros_like(own)
+    hit = (snap["matched"] >= 0) & (row >= 0)
+    dup[row[hit]] = True
+    dup &= own
+    with m.lock:
+        surviving = int((m.mp_valid & own).sum())
+        dup_left = int((m.mp_valid & dup).sum())
+        init_fixed = all(np.array_equal(m.kf_Tcw[k], T) for k, T in init_T.items())
+    n_own, n_dup = int(own.sum()), int(dup.sum())
+    print(f"  seam: ComputeSim3 matched {int((snap['matched'] >= 0).sum())} of the closing "
+          f"keyframe's features to loop-side points, {n_dup} of them at its own points; "
+          f"{dup_left} of those {n_dup} duplicates survive loop fusion, and {surviving} of all "
+          f"its {n_own} own points (the loop side maps fewer points than the arc's dense "
+          f"ray-cast landmarks); repeated (keyframe, point) pairs (C2) {c2_before[0]} of "
+          f"{c2_before[1]} bound features before, {c2_after[0]} of {c2_after[1]} after loop "
+          f"fusion")
+    check(dup_left <= n_dup // 2, "at most half of the seam's duplicates (the closing "
+          "keyframe's own points matched to loop-side points) survive loop fusion")
+    check(init_fixed, f"the NMI keyframes {sorted(init_T)} did not move")
+    rec["arc"] = dict(frames=[i for i, _ in arc], keyframes=[k for _, k in arc], build_s=arc_s,
+                      closed_at=k_c, closed_frame=i_c, cand=cand, cand_frame=old_frames[cand],
+                      err_before=err0, err_after=err1, records=arc_recs, process_ms=proc_ms,
+                      gba=gb, surviving=surviving, own=n_own, duplicates=n_dup,
+                      duplicates_left=dup_left, c2_before=c2_before,
+                      c2_after=c2_after, sim3=snap["rec"])
+
+    # --- ComputeSim3 of the closing pair: the card against the CPU --------------
+    def sim3_on(device, nudge=False):
+        fields = dict(snap["fields"])
+        if nudge:
+            fields["mp_pos"] = np.nextafter(fields["mp_pos"], np.float32(np.inf))
+        mm = convert.map_store_from_fields(fields, cfg)
+        c = LoopCloser(cfg, mm, None, None, device=device)
+        c.generator.set_state(snap["gen"])
+        c._rec = {}
+        if device.type == "cuda":
+            sync()
+        t = time.perf_counter()
+        out = c._compute_sim3(snap["k"], snap["cand"])
+        if device.type == "cuda":
+            sync()
+        ms = (time.perf_counter() - t) * 1e3
+        return out[0], (out[1] if out[0] else None), dict(c._rec, ms=ms)
+
+    keys = ("raw_matches", "ransac_inliers", "expanded_matches", "opt_inliers", "total_matches")
+    ok_d, S_d, r_d = sim3_on(dev)
+    ok_c, S_c, r_c = sim3_on(cpu)
+    ok_u, S_u, r_u = sim3_on(cpu, nudge=True)
+    with tf32_on():
+        ok_t, S_t, _ = sim3_on(dev)
+    counts = {k: (r_d.get(k), r_c.get(k), r_u.get(k)) for k in keys}
+    g_s = max_gap(S_d, S_c) if ok_d and ok_c else float("inf")
+    g_su = max_gap(S_u, S_c) if ok_u and ok_c else float("inf")
+    g_st = max_gap(S_t, S_d) if ok_t and ok_d else float("inf")
+    d_counts = max(abs(a - b) for a, b, _ in counts.values())
+    print(f"  ComputeSim3 (KF {snap['k']}, KF {snap['cand']}) on the same map and samples: accept "
+          f"card {ok_d}, CPU {ok_c}; counts (card, CPU, CPU one ulp) {counts}; max |Scw gap| card "
+          f"against CPU {g_s:.3e}, the CPU on points moved by one ulp {g_su:.3e}; TF32 on {g_st}; "
+          f"scale {float(np.linalg.norm(snap['Scw'][:3, 0])):.4f}; a warm call {r_d['ms']:.1f} "
+          f"ms on the card, {r_c['ms']:.1f} ms on the CPU  [{smi}]")
+    check(ok_d and ok_c, "ComputeSim3 accepts on the card and on the CPU")
+    check(d_counts <= LOOP_SIM3_COUNTS, f"match and inlier counts, card against CPU, within "
+          f"{LOOP_SIM3_COUNTS} (threshold ties)")
+    check(g_s <= LOOP_SIM3_SCW, f"Scw card against CPU {g_s:.3e} <= {LOOP_SIM3_SCW}")
+    check(g_st == 0.0, "ComputeSim3 with TF32 on: max |diff| 0")
+    rec["sim3_card_vs_cpu"] = dict(counts=counts, scw_gap=g_s, ulp_gap=g_su, tf32_gap=g_st,
+                                   warm_ms=r_d["ms"], cpu_ms=r_c["ms"])
+
+    # --- the essential graph of that closure: the card against the CPU ---------
+    host = lc.last_pose_graph
+    pg = {}
+    pg_ms = {}
+    for name, device, h in (("card", dev, host), ("cpu", cpu, host),
+                            ("ulp", cpu, dict(host, Scw=np.nextafter(host["Scw"],
+                                                                      np.float32(np.inf))))):
+        prob = pose_graph.PoseGraphProblem(**up(h, device))
+        sync()
+        t = time.perf_counter()
+        pg[name] = to_host(pose_graph.optimize_pose_graph(prob, iters=20))
+        pg_ms[name] = (time.perf_counter() - t) * 1e3
+    with tf32_on():
+        pg["tf32"] = to_host(pose_graph.optimize_pose_graph(
+            pose_graph.PoseGraphProblem(**up(host, dev)), iters=20))
+    g_e, g_eu, g_et = (max_gap(pg["card"], pg["cpu"]), max_gap(pg["ulp"], pg["cpu"]),
+                       max_gap(pg["tf32"], pg["card"]))
+    V, E = host["Scw"].shape[0], host["edge_i"].shape[0]
+    print(f"  essential graph (V {V}, E {E}, {int(host['fixed'].sum())} fixed): max |Scw gap| "
+          f"card against CPU {g_e:.3e}, the CPU on poses moved by one ulp {g_eu:.3e}; TF32 on "
+          f"{g_et}; finite {bool(np.isfinite(pg['card']).all())}; a warm solve {pg_ms['card']:.1f} "
+          f"ms on the card, {pg_ms['cpu']:.1f} ms on the CPU  [{smi}]")
+    check(bool(np.isfinite(pg["card"]).all()), "the essential-graph solution is finite")
+    check(g_e <= LOOP_EG_SCW, f"essential graph card against CPU {g_e:.3e} <= {LOOP_EG_SCW}")
+    check(g_et == 0.0, "the essential graph with TF32 on: max |diff| 0")
+    rec["essential_graph"] = dict(V=V, E=E, gap=g_e, ulp_gap=g_eu, tf32_gap=g_et, ms=pg_ms)
+
+    # --- optimize_pose_graph at V = 424: a chain and one loop edge, card and CPU -
+    V = LOOP_PG_V
+    gt = np.stack([world.pose_at(i, n_frames) for i in np.linspace(0, 471, V).round()
+                   .astype(int)]).astype(np.float64)
+    bias = np.eye(4)
+    bias[:3, :3] = np.array([[1, -0.002, 0], [0.002, 1, 0], [0, 0, 1]])
+    bias[:3, 3] = (0.01, 0.005, 0.0)
+    est = [gt[0]]
+    for j in range(1, V):
+        est.append(bias @ gt[j] @ np.linalg.inv(gt[j - 1]) @ est[-1])
+    est = np.stack(est)
+    ei = np.concatenate([np.arange(V - 1), [0]]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, V), [V - 1]]).astype(np.int32)
+    meas = np.stack([est[j] @ np.linalg.inv(est[i]) for i, j in zip(ei[:-1], ej[:-1])]
+                    + [gt[V - 1] @ np.linalg.inv(gt[0])])
+    big = dict(Scw=est.astype(np.float32), fixed=np.arange(V) == 0, valid=np.ones(V, bool),
+               edge_i=ei, edge_j=ej, edge_Sji=meas.astype(np.float32),
+               edge_valid=np.ones(V, bool))
+    times = {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        prob = pose_graph.PoseGraphProblem(**up(big, device))
+        runs = []
+        for _ in range(3 if name == "card" else 1):
+            if device.type == "cuda":
+                sync()
+            t = time.perf_counter()
+            out = pose_graph.optimize_pose_graph(prob, iters=20)
+            out = to_host(out)
+            runs.append((time.perf_counter() - t) * 1e3)
+        times[name] = dict(ms=runs, finite=bool(np.isfinite(out).all()),
+                           end_err_m=float(np.linalg.norm(center(out[-1]) - center(gt[-1]))))
+    e0 = float(np.linalg.norm(center(est[-1]) - center(gt[-1])))
+    print(f"  optimize_pose_graph at V {V} (chain + one loop edge, 20 iterations): card "
+          f"{[round(x, 1) for x in times['card']['ms']]} ms, CPU "
+          f"{[round(x, 1) for x in times['cpu']['ms']]} ms ({os.cpu_count()} host cores, "
+          f"{torch.get_num_threads()} torch threads); the last keyframe's "
+          f"error {e0:.3f} -> {times['card']['end_err_m']:.3f} m (card), "
+          f"{times['cpu']['end_err_m']:.3f} m (CPU)  [{smi}]")
+    check(times["card"]["finite"], f"optimize_pose_graph at V {V} gives finite poses")
+    rec["pose_graph_424"] = dict(times, start_err_m=e0)
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
     return rec
 
@@ -1280,7 +1653,11 @@ def main() -> int:
     print(f"build, kernel checks and the step took {time.perf_counter() - t_start:.1f} s")
     loc_record = localizer_phases(dev, smi, cuda_ms, check)
     track_record = tracking_phase(dev, smi, check, check_raster)
-    map_record = mapping_phase(dev, smi, check, cuda_ms)
+    map_record, session = mapping_phase(dev, smi, check, cuda_ms)
+    try:
+        loop_record = loop_phase(dev, smi, check, session)
+    finally:
+        session.shutdown()
     rc = track_record["raster_check"]
     rows["rasterize_keys"]["max_abs_err"] = max(rows["rasterize_keys"]["max_abs_err"],
                                                 rc["raster_err"])
@@ -1299,6 +1676,7 @@ def main() -> int:
     print(json.dumps({"localizer": loc_record, "card": smi}))
     print(json.dumps({"tracking": track_record, "card": smi}))
     print(json.dumps({"mapping": map_record, "card": smi}))
+    print(json.dumps({"loop": loop_record, "card": smi}))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

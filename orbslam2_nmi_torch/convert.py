@@ -6,8 +6,9 @@ and plain dicts: the binned mesh (the JAX `BinnedMesh` built with
 point-splat render model, the configurations (the `dataclasses.asdict` of
 the JAX dataclasses), the tracking step's carry, the map (the arrays of the
 map store, which are also a checkpoint's fields, `slam/checkpoint.py`) and
-a bundle-adjustment problem, so that both packages render, score, search,
-track and map with the same state in the parity tests.
+a bundle-adjustment problem, the vocabulary and the keyframe database, so
+that both packages render, score, search, track, map and close loops with
+the same state in the parity tests.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from orbslam2_nmi_torch.io.model_loader import PointCloudModel
 from orbslam2_nmi_torch.ops import raster, render
 from orbslam2_nmi_torch.slam.checkpoint import _MAP_FIELDS
 from orbslam2_nmi_torch.slam.fused_track import TrackCarry
+from orbslam2_nmi_torch.slam.keyframe_database import KeyFrameDatabase
 from orbslam2_nmi_torch.slam.map_store import MapStore
+from orbslam2_nmi_torch.slam.vocabulary import Vocabulary
 from orbslam2_nmi_torch.solvers.local_ba import BAProblem
 
 _DTYPES = {
@@ -133,3 +136,36 @@ def ba_problem_from_numpy(fields: dict, device: str | torch.device = "cuda") -> 
               "obs_uv": np.float32, "obs_inv_sigma2": np.float32, "obs_valid": bool}
     return BAProblem(**{k: torch.from_numpy(np.ascontiguousarray(np.asarray(fields[k], dtypes[k])))
                         .to(device) for k in BAProblem._fields})
+
+
+def vocabulary_from_numpy(fields: dict, device: str | torch.device = "cuda") -> Vocabulary:
+    """The port's Vocabulary, its descent on `device`, from the reference's
+    fields (`node_desc`, `children`, `leaf_id`, `word_weight`, `k`, `depth`):
+    e.g. `np.load` of a `.npz` saved by either package, or `vars()` of the
+    reference's Vocabulary."""
+    missing = {"node_desc", "children", "leaf_id", "word_weight", "k", "depth"} - set(fields)
+    if missing:
+        raise ValueError(f"vocabulary fields missing: {sorted(missing)}")
+    return Vocabulary(k=int(fields["k"]), depth=int(fields["depth"]),
+                      node_desc=np.asarray(fields["node_desc"], np.uint32),
+                      children=np.asarray(fields["children"], np.int32),
+                      leaf_id=np.asarray(fields["leaf_id"], np.int32),
+                      word_weight=np.asarray(fields["word_weight"], np.float32)).to(device)
+
+
+def database_from_fields(fields: dict, vocab: Vocabulary) -> KeyFrameDatabase:
+    """The port's KeyFrameDatabase over `vocab` holding the reference's
+    entries (`kf_words`, `kf_weights`, `kf_nwords`, `active`) and inverted
+    file (`inverted`, word -> keyframe list, copied in its order): e.g.
+    `vars()` of the reference's KeyFrameDatabase."""
+    missing = {"kf_words", "kf_weights", "kf_nwords", "active", "inverted"} - set(fields)
+    if missing:
+        raise ValueError(f"database fields missing: {sorted(missing)}")
+    words = np.asarray(fields["kf_words"], np.int64)
+    db = KeyFrameDatabase(vocab, words.shape[0], max_words=words.shape[1])
+    db.kf_words[...] = words
+    db.kf_weights[...] = np.asarray(fields["kf_weights"], np.float32)
+    db.kf_nwords[...] = np.asarray(fields["kf_nwords"], np.int32)
+    db.active[...] = np.asarray(fields["active"], bool)
+    db.inverted = {int(w): [int(k) for k in kfs] for w, kfs in fields["inverted"].items()}
+    return db

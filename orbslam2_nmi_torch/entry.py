@@ -1,5 +1,5 @@
 """The port's entry points: the NMI pose-grid step, the localizer, the
-tracking step, and mapping with NMI initialization.
+tracking step, mapping with NMI initialization, and loop closing.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: one full evaluation of
 the pose grid around a prior pose. It renders every translation candidate of
@@ -41,12 +41,19 @@ local BA):
         rec = session.track_frame(i)
     session.flush()
 
-All four run on CUDA unless the caller passes `device="cpu"` (the CPU runs
-the kernels' plain versions; the tests use it at small sizes).
+`loop_entry()` is `mapping_entry()` with place recognition and loop closing
+wired in (`MappingSystem`): the vocabulary trains from the first keyframes,
+and `add_revisit_arc` then adds a drifted revisit of the circuit's start
+for the loop closer to close (see its docstring); `relocalize_pnp`
+relocalizes a frame against the map by BoW and PnP.
+
+All of them run on CUDA unless the caller passes `device="cpu"` (the CPU
+runs the kernels' plain versions; the tests use it at small sizes).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -57,15 +64,20 @@ from orbslam2_nmi_torch.config import (CameraConfig, NMIConfig, NMIGridConfig, O
                                        SystemConfig, TrackingConfig)
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, raycast_terrain
-from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
+from orbslam2_nmi_torch.ops import histogram_nmi, homography, matching, raster, render
 from orbslam2_nmi_torch.slam import initialization
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.slam.fused_track import (FusedTrackStep, TrackCarry, carry_from_frame,
                                                  unpack_step)
+from orbslam2_nmi_torch.slam.keyframe_database import KeyFrameDatabase
 from orbslam2_nmi_torch.slam.local_mapping import LocalMapper
+from orbslam2_nmi_torch.slam.loop_closing import N_HYPOTHESES, LoopCloser, draw_uniform
 from orbslam2_nmi_torch.slam.map_store import MapStore
 from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 from orbslam2_nmi_torch.slam.pipeline import MappingPipeline
+from orbslam2_nmi_torch.slam.vocabulary import Vocabulary
+from orbslam2_nmi_torch.solvers import pnp
+from orbslam2_nmi_torch.utils.bucketing import bucket, pad_rows, row_mask
 from orbslam2_nmi_torch.utils.readback import to_host
 
 NEAR, FAR = 5.0, 40.0
@@ -483,17 +495,84 @@ class MapStoreCandidates:
 
 class MappingSystem:
     """The system object the mapping worker reads (`map`, `local_mapper`,
-    `loop_closer`, `ensure_vocabulary`): a stand-in until the system is
-    ported. There is no loop closer and no vocabulary yet, so
-    `ensure_vocabulary` does nothing."""
+    `loop_closer`, `ensure_vocabulary`, and `pipeline` once the session has
+    started it): the place-recognition part of the JAX package's SLAMSystem
+    (`slam/system.py:98-160`), until the system itself is ported.
 
-    def __init__(self, map_store: MapStore, local_mapper: LocalMapper):
+    With `place_recognition` on, `ensure_vocabulary` buffers keyframe
+    descriptors and trains a k=8, depth=4 vocabulary (seed 0) once 4,096
+    descriptors or 4 keyframes' worth are buffered, on whichever thread calls
+    it then (the tracking thread at a new keyframe, or the mapping worker
+    after local mapping); `_build_place_recognition` then builds the keyframe
+    database (culled keyframes leave it through `map.on_keyframe_removed`)
+    and the loop closer, hands it the pipeline's global-BA launcher, and
+    backfills the keyframes mapped so far. `vocab_record` says when, where
+    and how long. With it off, there is no vocabulary and no loop closer,
+    and `ensure_vocabulary` does nothing."""
+
+    def __init__(self, cfg: SystemConfig, map_store: MapStore, local_mapper: LocalMapper,
+                 place_recognition: bool = False, log_fn=None):
+        self.cfg = cfg
         self.map = map_store
         self.local_mapper = local_mapper
+        self.place_recognition = place_recognition
+        self.log = log_fn or (lambda s: None)
+        self.pipeline = None
+        self.vocabulary = None
+        self.database = None
         self.loop_closer = None
+        self.vocab_record: dict | None = None
+        self._vocab_buffer: list = []
 
-    def ensure_vocabulary(self, desc, valid) -> None:
-        pass
+    def _build_place_recognition(self) -> None:
+        self.database = KeyFrameDatabase(self.vocabulary, self.cfg.tracking.max_keyframes,
+                                         max_words=self.cfg.tracking.max_features)
+        # culled KFs must leave the place-recognition DB (KeyFrame.cc:504
+        # erases from KeyFrameDatabase inside SetBadFlag)
+        self.map.on_keyframe_removed.append(self.database.erase)
+        self.loop_closer = LoopCloser(self.cfg, self.map, self.database, self.local_mapper,
+                                      log_fn=self.log, device=self.local_mapper.device)
+        if self.pipeline is not None:  # global BA on its own abortable thread
+            self.loop_closer.gba_launcher = self.pipeline.launch_global_ba
+        # backfill keyframes created before the vocabulary existed
+        with self.map.lock:
+            for k in self.map.valid_keyframe_indices():
+                if not self.database.active[k]:
+                    self.database.add(int(k), self.map.kf_feat_desc[k],
+                                      self.map.kf_feat_valid[k])
+
+    def ensure_vocabulary(self, descriptors, valid, frame_id: int = -1) -> None:
+        """SLAMSystem.ensure_vocabulary (`slam/system.py:123-160`): train the
+        vocabulary from early keyframes if none exists. `frame_id`, the
+        keyframe's frame, only goes into `vocab_record`; the mapping worker
+        calls without it, right after local mapping, so its frame is that of
+        the keyframe the local mapper processed last."""
+        if not self.place_recognition or self.vocabulary is not None:
+            return
+        d = np.asarray(descriptors)[np.asarray(valid)]
+        if len(d):
+            self._vocab_buffer.append(d)
+        n_buf = sum(len(x) for x in self._vocab_buffer)
+        if n_buf < 64:
+            return
+        # train once the buffer is rich enough (or early, for tiny runs)
+        if n_buf < 4096 and len(self._vocab_buffer) < 4:
+            return
+        if frame_id < 0 and self.local_mapper.records:
+            frame_id = int(self.map.kf_frame_id[self.local_mapper.records[-1]["kf"]])
+        t = time.perf_counter()
+        alld = np.concatenate(self._vocab_buffer)
+        self._vocab_buffer = []
+        self.vocabulary = Vocabulary.train(alld, k=8, depth=4, seed=0).to(
+            self.local_mapper.device)
+        t_train = time.perf_counter() - t
+        self._build_place_recognition()
+        self.vocab_record = dict(train_s=t_train, total_s=time.perf_counter() - t,
+                                 thread=threading.current_thread().name, frame=int(frame_id),
+                                 descriptors=len(alld), words=self.vocabulary.n_words,
+                                 keyframes=int(self.map.n_keyframes))
+        self.log(f"trained vocabulary: {self.vocabulary.n_words} words from {len(alld)} "
+                 "descriptors")
 
 
 class MappingSession:
@@ -515,13 +594,15 @@ class MappingSession:
     - `flush()`: waits for the mapping worker and raises its errors.
 
     The mapping worker starts with the session (`shutdown()` stops it);
-    keyframes go to `keyframe_sink`, its `insert_keyframe`.
+    keyframes go to `keyframe_sink`, its `insert_keyframe`. `system` is the
+    `MappingSystem` the worker reads; with `place_recognition` it trains the
+    vocabulary at a keyframe and closes loops.
     """
 
     def __init__(self, world: SyntheticMeshWorld, cfg: SystemConfig, frames: torch.Tensor,
                  poses: np.ndarray, frame_ids: list, n_cand: int, device: torch.device,
-                 keyframe_every: int):
-        self.world, self.cfg, self.device = world, cfg, device
+                 keyframe_every: int, n_frames: int = 520, place_recognition: bool = False):
+        self.world, self.cfg, self.device, self.n_frames = world, cfg, device, n_frames
         self.frames, self.poses, self.frame_ids = frames, poses, list(frame_ids)
         self.keyframe_every = keyframe_every
         self.step = FusedTrackStep(cfg, n_cand, device)
@@ -529,8 +610,9 @@ class MappingSession:
         self.local_mapper = LocalMapper(cfg, self.map, device=device)
         self.localizer = NMILocalizer(cfg.nmi, cfg.camera, None, mesh=world.mesh, device=device)
         self.candidates = MapStoreCandidates(self.map, cfg, n_cand, device)
-        self.system = MappingSystem(self.map, self.local_mapper)
+        self.system = MappingSystem(cfg, self.map, self.local_mapper, place_recognition)
         self.pipeline = MappingPipeline(self.system)  # starts the worker thread
+        self.system.pipeline = self.pipeline
         self.keyframe_sink = self.pipeline.insert_keyframe
         self.track_ids = [i for i in self.frame_ids if i > INIT_FRAMES[1]]
         self.init_frames: list = []
@@ -547,9 +629,10 @@ class MappingSession:
     def true_pose(self, i: int) -> np.ndarray:
         return self.poses[self.frame_ids.index(i)]
 
-    def features(self, i: int) -> FrameData:
-        """FrameData of frame i: the step's ORB features, no pose yet."""
-        f = self.step.extract(self.frame(i))
+    def features(self, i: int, frame: torch.Tensor | None = None) -> FrameData:
+        """FrameData of frame i (or of the uint8 image `frame`, frame i's): the
+        step's ORB features, no pose yet."""
+        f = self.step.extract(self.frame(i) if frame is None else frame)
         h = {k: to_host(getattr(f, k)) for k in ("xy", "octave", "angle", "desc", "valid")}
         return FrameData(frame_id=i, timestamp=i / self.cfg.camera.fps, Tcw=None, xy=h["xy"],
                          xy_raw=h["xy"], octave=h["octave"], angle=h["angle"],
@@ -636,7 +719,7 @@ class MappingSession:
                                        mp_idx=np.where(frame.outlier, -1, frame.mp_idx))
                 self.ref_kf = k_new
                 self.keyframes.append((i, k_new))
-                self.system.ensure_vocabulary(frame.desc, frame.valid)
+                self.system.ensure_vocabulary(frame.desc, frame.valid, frame_id=i)
                 self.keyframe_sink(k_new)
                 reseed = True  # the map changed: re-anchor the device chain
             frame.mp_idx[frame.outlier] = -1
@@ -684,14 +767,17 @@ class MappingSession:
 def mapping_entry(device: str | torch.device = "cuda", height: int = 540, width: int = 960,
                   n_frames: int = 520, last: int = 68, keyframe_every: int = KEYFRAME_EVERY,
                   world: SyntheticMeshWorld | None = None, n_features: int = 2000,
-                  n_cand: int = 2048, max_keyframes: int = 512) -> MappingSession:
+                  n_cand: int = 2048, max_keyframes: int = 512,
+                  place_recognition: bool = False) -> MappingSession:
     """The mapping path on the full-circuit replay configuration
     (`mapping_config`): frames 0, 8 and 9 .. `last` of the `n_frames`
     circuit rendered on `device` by `SyntheticMeshWorld.render_frames` (B3
     and the sampler), the localizer on the world's own mesh (render mode 1,
     so B3, the sampler, B2 and B1 run inside both latches), the tracking
     step with `n_cand` candidates, a keyframe every `keyframe_every` frames,
-    and the mapping worker started (`shutdown()` stops it).
+    and the mapping worker started (`shutdown()` stops it). With
+    `place_recognition` the session's system trains a vocabulary and closes
+    loops (`MappingSystem`; `loop_entry` turns it on).
     """
     device = kernels.resolve_device(device, "mapping_entry()")
     world = SyntheticMeshWorld.generate(seed=0) if world is None else world
@@ -699,4 +785,173 @@ def mapping_entry(device: str | torch.device = "cuda", height: int = 540, width:
     ids = [INIT_FRAMES[0]] + list(range(INIT_FRAMES[1], last + 1))
     frames = world.render_frames(ids, n_frames, width, height, device=device)
     poses = np.stack([world.pose_at(i, n_frames) for i in ids])
-    return MappingSession(world, cfg, frames, poses, ids, n_cand, device, keyframe_every)
+    return MappingSession(world, cfg, frames, poses, ids, n_cand, device, keyframe_every,
+                          n_frames=n_frames, place_recognition=place_recognition)
+
+
+# ---------------------------------------------------------------------------
+# Place recognition and loop closing: a revisit arc with drift
+# ---------------------------------------------------------------------------
+
+# The circuit re-traverses its start arc in its last 10 % (`SyntheticMeshWorld.
+# overlap`): frame i has the pose of frame i - 471.8 (519 / 1.1). These eight
+# frames revisit frames 4.2 .. 46.2.
+REVISIT_ARC = tuple(range(476, 519, 6))
+ARC_DRIFT = dict(scale=1.04, yaw=0.03, t=(0.5, -0.3, 0.1))  # the arc's Sim(3) drift
+
+
+def drift_sim3(scale: float, yaw: float, t) -> np.ndarray:
+    """The world-frame similarity D = [s Rz(yaw) | t] (float64 [4, 4])."""
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    D = np.eye(4)
+    D[:3, :3] = scale * np.array([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]])
+    D[:3, 3] = t
+    return D
+
+
+def add_revisit_arc(session: MappingSession, frame_ids=REVISIT_ARC, drift=None) -> list:
+    """Add a revisit of the circuit's start as keyframes with a Sim(3) drift,
+    the state a loop closure meets (the map-building harness of
+    `tests/test_loop_closing.py:38-97` on the rendered circuit).
+
+    Each frame of `frame_ids` is rendered on the session's device (B3 and the
+    sampler) and its features taken by the step's `extract`. With the drift
+    D (`drift`, a 4x4 similarity; `ARC_DRIFT` by default):
+      * the keyframe's pose keeps its projections exact in the drifted world:
+        centre D(c), rotation R_cw R_D^T;
+      * its landmarks are the ray-cast terrain points under its features
+        (`ground_truth_landmarks`), carried through D;
+      * consecutive arc keyframes share the landmarks of the features that
+        `match_descriptors` pairs between them (TH_LOW, ratio 0.75, rotation
+        check); every other valid feature gets a new point. Points get the
+        map store's statistics (`update_point_stats`).
+    No arc keyframe observes a point of the map before it, so the arc is not
+    covisible with it. The caller runs the loop closer on the keyframes.
+    Returns [(frame id, keyframe id)]."""
+    m, cfg = session.map, session.cfg
+    D = drift_sim3(**ARC_DRIFT) if drift is None else np.asarray(drift, np.float64)
+    sD = float(np.linalg.norm(D[:3, 0]))
+    RD = D[:3, :3] / sD
+    frames = session.world.render_frames(list(frame_ids), session.n_frames, cfg.camera.width,
+                                         cfg.camera.height, device=session.device)
+    K = cfg.camera.K
+    dev = session.device
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out, prev = [], None
+    for i, img in zip(frame_ids, frames):
+        f = session.features(i, img)
+        T = session.world.pose_at(i, session.n_frames)
+        c = D[:3, :3] @ _center(T) + D[:3, 3]
+        Tc = np.eye(4)
+        Tc[:3, :3] = T[:3, :3].astype(np.float64) @ RD.T
+        Tc[:3, 3] = -Tc[:3, :3] @ c
+        pts = np.zeros((len(f.xy), 3), np.float32)
+        v = f.valid
+        pts[v] = (ground_truth_landmarks(K, T, f.xy[v]).astype(np.float64) @ D[:3, :3].T
+                  + D[:3, 3]).astype(np.float32)
+        shared = np.full(len(f.xy), -1, np.int32)
+        with m.lock:
+            if prev is not None:
+                k0, f0 = prev
+                has = m.kf_mp_idx[k0, : len(f0.xy)] >= 0
+                idx, _ = matching.match_descriptors(
+                    up(f.desc.view(np.int32)), up(v), up(f0.desc.view(np.int32)), up(has),
+                    max_dist=matching.TH_LOW, nn_ratio=0.75, angle_a=up(f.angle),
+                    angle_b=up(f0.angle), check_rotation=True)
+                idx = to_host(idx)
+                hit = idx >= 0
+                shared[hit] = m.kf_mp_idx[k0, idx[hit]]
+            k = m.add_keyframe(Tc.astype(np.float32), i, i / cfg.camera.fps, f.xy, f.octave,
+                               f.angle, f.desc, f.valid, mp_idx=shared)
+            for r in np.nonzero(v & (shared < 0))[0]:
+                p = m.add_map_point(pts[r], f.desc[r], k, np.zeros(3, np.float32))
+                m.add_observation(k, int(r), p)
+            for p in np.unique(m.kf_mp_idx[k][m.kf_mp_idx[k] >= 0]):
+                m.update_point_stats(int(p), K, cfg.orb.scale_factor, cfg.orb.n_levels)
+        out.append((i, k))
+        prev = (k, f)
+    return out
+
+
+def relocalize_pnp(session: MappingSession, i: int, frame: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None, min_matches: int = 15) -> list:
+    """The BoW + PnP half of the JAX tracker's relocalization
+    (`Tracker._relocalize`, tracking.py:912-965) for frame i (or the uint8
+    image `frame`) at its features: the database's relocalization
+    candidates, each candidate's map points matched to the frame (TH_LOW,
+    ratio 0.75, rotation check; at least `min_matches`), and `pnp_ransac`
+    (EPnP, 128 hypotheses, at least 10 inliers) on samples drawn uniformly on
+    a CPU `generator` (seed 11 by default). The guided expansion to 50
+    inliers comes with the tracker. Returns one dict per candidate tried, up
+    to the first that succeeds: the candidate, its matches, the solver's
+    inputs (host arrays, so the solve can be repeated on another device) and
+    its result."""
+    m, cfg = session.map, session.cfg
+    db = session.system.database
+    if db is None:
+        raise RuntimeError("no keyframe database yet: the vocabulary has not been trained")
+    generator = torch.Generator().manual_seed(11) if generator is None else generator
+    f = session.features(i, frame)
+    dev = session.device
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    inv_s2 = (1.0 / (cfg.orb.scale_factor ** np.arange(cfg.orb.n_levels)) ** 2).astype(np.float32)
+    tries = []
+    with m.lock:
+        cands = db.detect_relocalization_candidates(m, f.desc, f.valid)
+        for cand in cands:
+            has_mp = m.kf_mp_idx[cand] >= 0
+            if has_mp.sum() < min_matches:
+                continue
+            idx, _ = matching.match_descriptors(
+                up(m.kf_feat_desc[cand].view(np.int32)), up(has_mp), up(f.desc.view(np.int32)),
+                up(f.valid), max_dist=matching.TH_LOW, nn_ratio=0.75,
+                angle_a=up(m.kf_feat_angle[cand]), angle_b=up(f.angle), check_rotation=True)
+            idx = to_host(idx)
+            src = np.nonzero(idx >= 0)[0]
+            rec = dict(cand=int(cand), frame=int(m.kf_frame_id[cand]), matches=len(src))
+            tries.append(rec)
+            if len(src) < min_matches:
+                continue
+            nb = bucket(len(src))
+            rec["inputs"] = dict(
+                samples=draw_uniform(generator, len(src), N_HYPOTHESES, 4),
+                pts_w=pad_rows(m.mp_pos[m.kf_mp_idx[cand][src]], nb),
+                uv=pad_rows(f.xy[idx[src]], nb),
+                inv_sigma2=pad_rows(inv_s2[f.octave[idx[src]]], nb, 1.0),
+                valid=row_mask(len(src), nb))
+            inp = rec["inputs"]
+            res = pnp.pnp_ransac(up(inp["samples"]), cfg.camera.K, up(inp["pts_w"]),
+                                 up(inp["uv"]), up(inp["inv_sigma2"]), up(inp["valid"]),
+                                 min_inliers=10)
+            rec.update(Tcw=to_host(res.Tcw), n_inliers=int(to_host(res.n_inliers)),
+                       ok=bool(to_host(res.ok)))
+            if rec["ok"]:
+                break
+    return tries
+
+
+def loop_entry(device: str | torch.device = "cuda", height: int = 540, width: int = 960,
+               **kw) -> MappingSession:
+    """`mapping_entry`'s session (the full-circuit replay configuration at
+    960x540 by default; the same keyword arguments) with the place-
+    recognition hooks wired: the vocabulary trains from the first keyframes
+    (`MappingSystem.ensure_vocabulary`), and the keyframe database and the
+    loop closer, with the pipeline's global-BA launcher, come with it. Then
+    `add_revisit_arc(session)` adds the drifted revisit of the circuit's
+    start, and `session.system.loop_closer.process_keyframe(k)` closes the
+    loop:
+
+        session = loop_entry()
+        session.initialize()
+        for i in session.track_ids:
+            session.track_frame(i)
+        session.flush()
+        arc = add_revisit_arc(session)
+        for _, k in arc:
+            with session.map.lock:
+                session.system.loop_closer.process_keyframe(k)
+        session.flush()  # the global BA
+    """
+    kernels.resolve_device(device, "loop_entry()")
+    return mapping_entry(device=device, height=height, width=width, place_recognition=True,
+                         **kw)

@@ -1,9 +1,9 @@
-"""SO(3) and SE(3) operations in torch float32.
+"""SO(3), SE(3) and Sim(3) operations in torch float32.
 
-Port of `orbslam2_nmi_tpu/geometry/se3.py` without Sim(3) (it comes with loop
-closing). Rotations are 3x3 matrices or quaternions [w, x, y, z] (Hamilton);
-poses Tcw are 4x4 world->camera transforms; SE(3) tangents are [rho, phi] =
-[translation, rotation], as in g2o.
+Port of `orbslam2_nmi_tpu/geometry/se3.py`. Rotations are 3x3 matrices or
+quaternions [w, x, y, z] (Hamilton); poses Tcw are 4x4 world->camera
+transforms; SE(3) tangents are [rho, phi] = [translation, rotation], as in
+g2o; Sim(3) tangents add sigma, the log-scale.
 
 Pose math stays in full float32: no TF32, no bf16. No small matrix product
 here goes through `torch.matmul`, whose float32 path follows the process's
@@ -16,14 +16,15 @@ products. There are two forms:
     fused multiply-adds, the order the JAX package's compiled HIGHEST
     products use on the CPU, so the splat's coordinates, the homographies,
     the projection matrices and the poses of `so3_exp`, `se3_inverse`,
-    `se3_apply` and `se3_compose` are the JAX package's bit for bit (their
-    tests hold them so; the renders' test holds the splat pixel for pixel).
+    `se3_apply`, `se3_compose`, `sim3_inverse` and `sim3_apply` are the JAX
+    package's bit for bit (their tests hold them so; the renders' test holds
+    the splat pixel for pixel).
     Each fused step is a float64 product and sum (exact: a product of two
     float32 fits in float64) rounded once to float32, about four launches a
     term: only for the products whose bits are tested.
 Either way a caller who turns TF32 on gets the same poses, homographies and
-splat coordinates. `se3_log` solves with `solve_ex`, which does not wait on
-the device for an error check.
+splat coordinates. `se3_log` and `sim3_log` solve with `solve_ex`, which
+does not wait on the device for an error check.
 """
 
 from __future__ import annotations
@@ -234,3 +235,89 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     V = eye + b[..., None, None] * W + c[..., None, None] * W2
     rho = torch.linalg.solve_ex(V, T[..., :3, 3:4])[0][..., 0]
     return torch.cat([rho, phi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3), for loop closing (g2o sim3.h, Sim3Solver.cc). A similarity is a 4x4
+# [sR t; 0 1]; its tangent is [rho(3), phi(3), sigma(1)], s = exp(sigma).
+# ---------------------------------------------------------------------------
+
+
+def make_sim3(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Assemble 4x4 [sR t; 0 1]."""
+    return make_se3(R * s[..., None, None], t)
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    sR = S[..., :3, :3]
+    t = S[..., :3, 3]
+    s2 = torch.sum(sR[..., 0, :] * sR[..., 0, :], dim=-1)  # |s * row|^2 = s^2
+    inv_s2 = 1.0 / torch.clamp(s2, min=_EPS)
+    sRinv = sR.transpose(-1, -2) * inv_s2[..., None, None]  # (1/s) R^T
+    return make_se3(sRinv, -mv_fma(sRinv, t))
+
+
+def sim3_apply(S: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return mv_fma(S[..., :3, :3], p) + S[..., :3, 3]
+
+
+def sim3_scale(S: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(S[..., :3, 0], dim=-1)
+
+
+def _sim3_w_matrix(phi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """The sim(3) 'W' matrix with t = W rho (Strasdat's closed form, the math
+    behind g2o sim3.h): W = C I + A hat(phi) + B hat(phi)^2, with the
+    coefficients' limits at small sigma and small theta."""
+    s = torch.exp(sigma)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    W = hat(phi)
+    W2 = mm(W, W)
+
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta < 1e-5
+    one = torch.ones_like(sigma)
+    sig_safe = torch.where(small_sig, one, sigma)
+    th_safe = torch.where(small_th, one, theta)
+    t2_safe = torch.clamp(theta2, min=_EPS)
+
+    C = torch.where(small_sig, 1.0 + sigma / 2.0, (s - 1.0) / sig_safe)
+    a_ss = torch.full_like(C, 0.5)  # sigma ~ 0, theta ~ 0
+    b_ss = torch.full_like(C, 1.0 / 6.0)
+    a_sl = (1.0 - torch.cos(th_safe)) / t2_safe  # sigma ~ 0
+    b_sl = (th_safe - torch.sin(th_safe)) / torch.clamp(theta2 * th_safe, min=_EPS)
+    a_ls = ((sig_safe - 1.0) * s + 1.0) / torch.clamp(sig_safe ** 2, min=_EPS)  # theta ~ 0
+    b_ls = ((0.5 * sig_safe ** 2 - sig_safe + 1.0) * s - 1.0) / torch.clamp(sig_safe ** 3,
+                                                                             min=_EPS)
+    aa = s * torch.sin(th_safe)
+    bb = s * torch.cos(th_safe)
+    cc = theta2 + sigma * sigma
+    a_ll = (aa * sig_safe + (1.0 - bb) * th_safe) / torch.clamp(th_safe * cc, min=_EPS)
+    b_ll = (C - ((bb - 1.0) * sig_safe + aa * th_safe) / torch.clamp(cc, min=_EPS)) / t2_safe
+    A = torch.where(small_th, torch.where(small_sig, a_ss, a_ls),
+                    torch.where(small_sig, a_sl, a_ll))
+    B = torch.where(small_th, torch.where(small_sig, b_ss, b_ls),
+                    torch.where(small_sig, b_sl, b_ll))
+    eye = torch.eye(3, dtype=phi.dtype, device=phi.device).expand(W.shape)
+    return C[..., None, None] * eye + A[..., None, None] * W + B[..., None, None] * W2
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) tangent [rho(3), phi(3), sigma(1)] -> 4x4 [sR t; 0 1]."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    R = so3_exp(phi)
+    t = mv(_sim3_w_matrix(phi, sigma), rho)
+    return make_sim3(R, t, torch.exp(sigma))
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """4x4 Sim(3) -> [rho, phi, sigma], the inverse of sim3_exp. The solve is
+    `solve_ex`, which does not wait on the device for an error check."""
+    s = sim3_scale(S)
+    R = S[..., :3, :3] / s[..., None, None]
+    t = S[..., :3, 3]
+    phi = so3_log(R)
+    sigma = torch.log(torch.clamp(s, min=_EPS))
+    rho = torch.linalg.solve_ex(_sim3_w_matrix(phi, sigma), t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -26,7 +26,11 @@ their device work on a stream of their own (`self.stream`), so a tracking
 step replayed on the tracking thread's stream does not queue behind a BA;
 each thread's result reaches the host through a copy that waits for that
 stream only. `system` is any object with `map`, `local_mapper`,
-`loop_closer` (None until loop closing is ported) and `ensure_vocabulary`.
+`loop_closer` and `ensure_vocabulary` (`entry.MappingSystem`): while its
+`loop_closer` is None the worker offers it each keyframe's descriptors
+(the vocabulary may train then, and the loop closer appear); once it
+exists, the worker runs loop closing on each keyframe after local mapping,
+and the closer's global BA comes back here (`launch_global_ba`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 import traceback
 from typing import Optional
 
@@ -56,6 +61,7 @@ class MappingPipeline:
         self._gba_lock = threading.Lock()
         self._gba_idx = 0  # mnFullBAIdx
         self._gba_thread: Optional[threading.Thread] = None
+        self.gba_records: list = []  # one a global BA: sizes, solve time, applied
         dev = system.local_mapper.device
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         if system.loop_closer is not None:
@@ -156,10 +162,15 @@ class MappingPipeline:
                 if snap is None:
                     return
                 prob, kfs, pts, fixed = snap
+                rec = dict(C=prob.cam_Tcw.shape[0], P=prob.pts_w.shape[0],
+                           O=prob.obs_cam.shape[0], applied=False)
+                self.gba_records.append(rec)
+                t = time.perf_counter()
                 with self._on_stream():
                     res = local_ba.bundle_adjust(prob, iters1=iters // 2,
                                                  iters2=iters - iters // 2)
                     res = local_ba.BAResult(*(to_host(x) for x in res))  # waits for the solve
+                rec["solve_ms"] = (time.perf_counter() - t) * 1e3
                 with self._gba_lock:
                     if idx != self._gba_idx:
                         return  # aborted by a newer loop closure
@@ -167,6 +178,7 @@ class MappingPipeline:
                     if self.system.map.epoch != epoch:
                         return  # System::Reset wiped the map mid-solve
                     lm.global_ba_apply(res, kfs, pts, fixed)
+                    rec["applied"] = True
             except Exception:  # surfaced via errors()
                 self._errors.append(traceback.format_exc())
 

@@ -145,10 +145,11 @@ def test_entry_raises_without_cuda(monkeypatch):
 def test_port_never_imports_jax():
     """Running the port's entry, its localizer (one strategy on the textured
     mesh, and one grid on the point model), its tracking step (one frame
-    of `tracking_entry`), the native map core and a bundle adjustment on the
-    CPU, with every mapping module imported, leaves jax and the JAX package
-    out of sys.modules, and no file of the port (nor chip_smoke.py) imports
-    them."""
+    of `tracking_entry`), the native map core, a bundle adjustment, a
+    vocabulary's training and descent, a pose graph, a Sim3 RANSAC and a
+    PnP on the CPU, with every mapping and loop-closing module imported,
+    leaves jax and the JAX package out of sys.modules, and no file of the
+    port (nor chip_smoke.py) imports them."""
     code = (
         "import sys, json\n"
         "import numpy as np, torch\n"
@@ -184,6 +185,29 @@ def test_port_never_imports_jax():
         " obs_uv=torch.ones(1, 2), obs_inv_sigma2=torch.ones(1),"
         " obs_valid=torch.ones(1, dtype=torch.bool))\n"
         "assert torch.equal(local_ba.bundle_adjust(prob, 1, 1).cam_Tcw, prob.cam_Tcw)\n"
+        "from orbslam2_nmi_torch.entry import add_revisit_arc, loop_entry, relocalize_pnp\n"
+        "from orbslam2_nmi_torch.slam import keyframe_database, loop_closing, vocabulary\n"
+        "from orbslam2_nmi_torch.solvers import pnp, pose_graph, sim3\n"
+        "d = np.random.default_rng(0).integers(0, 2**32, (300, 8), dtype=np.uint32)\n"
+        "voc = vocabulary.Vocabulary.train(d, k=4, depth=2)\n"
+        "assert (voc.quantize(d) >= 0).all()\n"
+        "S = pose_graph.optimize_pose_graph(pose_graph.PoseGraphProblem(Scw=torch.eye(4).repeat("
+        "3, 1, 1), fixed=torch.tensor([True, False, False]), valid=torch.ones(3, dtype=torch.bool),"
+        " edge_i=torch.tensor([0, 1], dtype=torch.int32), edge_j=torch.tensor([1, 2],"
+        " dtype=torch.int32), edge_Sji=torch.eye(4).repeat(2, 1, 1),"
+        " edge_valid=torch.ones(2, dtype=torch.bool)), iters=2)\n"
+        "assert torch.allclose(S, torch.eye(4).repeat(3, 1, 1))\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "p = torch.randn(16, 3, generator=g) + torch.tensor([0.0, 0.0, 8.0])\n"
+        "K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]], np.float32)\n"
+        "uv = p[:, :2] / p[:, 2:] * 300.0 + torch.tensor([160.0, 120.0])\n"
+        "one = torch.ones(16)\n"
+        "r = sim3.sim3_ransac(torch.arange(3).repeat(4, 1), K, p, p, uv, uv, one, one,"
+        " one.bool(), min_inliers=3)\n"
+        "assert bool(r.ok)\n"
+        "samples = torch.stack([torch.randperm(16, generator=g)[:4] for _ in range(8)])\n"
+        "r = pnp.pnp_ransac(samples, K, p, uv, one, one.bool())\n"
+        "assert bool(r.ok)\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )

@@ -138,3 +138,137 @@ def jax_system_config(cfg):
         camera=jconfig.CameraConfig(**d["camera"]), orb=jconfig.ORBConfig(**d["orb"]),
         nmi=jconfig.NMIConfig(**{**d["nmi"], "grid": grid}),
         tracking=jconfig.TrackingConfig(**d["tracking"]))
+
+
+# tests/test_loop_closing.py's looped map: a chain of 14 keyframes (320x240,
+# 120 features, fx 300) whose last keyframe revisits the first with a drifted
+# pose and its own drifted duplicate landmarks.
+LOOP_N_FEAT = 120
+LOOP_N_CHAIN = 14
+
+
+def looped_map_state():
+    """The JAX package's MapStore of tests/test_loop_closing.py:32-97, built
+    from the same draws, with its config, the ground-truth and drifted
+    poses: (jax cfg, jax map, gt, est). `convert.map_store_from_fields` gives
+    the port's copy."""
+    import jax.numpy as jnp
+
+    from orbslam2_nmi_tpu.config import CameraConfig, ORBConfig, SystemConfig, TrackingConfig
+    from orbslam2_nmi_tpu.geometry import se3
+    from orbslam2_nmi_tpu.slam.map_store import MapStore
+
+    N_FEAT, N_CHAIN = LOOP_N_FEAT, LOOP_N_CHAIN
+
+    def project_cam(pc):
+        return (pc[:, :2] / pc[:, 2:3] * [300.0, 300.0] + [160.0, 120.0]).astype(np.float32)
+
+    rng = np.random.default_rng(0)
+    cfg = SystemConfig(
+        camera=CameraConfig(fx=300.0, fy=300.0, cx=160.0, cy=120.0, width=320, height=240),
+        orb=ORBConfig(n_features=N_FEAT, n_levels=4),
+        tracking=TrackingConfig(max_keyframes=32, max_map_points=8192, max_features=N_FEAT),
+    )
+    m = MapStore(cfg)
+    pc_scene = np.stack([rng.uniform(-3, 3, N_FEAT), rng.uniform(-2, 2, N_FEAT),
+                         rng.uniform(6, 12, N_FEAT)], -1).astype(np.float32)
+    uv_scene = project_cam(pc_scene)
+    descs0 = rng.integers(0, 2**32, (N_FEAT, 8), dtype=np.uint32)
+    gt = []
+    for i in range(N_CHAIN):
+        if i == 0 or i == N_CHAIN - 1:
+            gt.append(np.eye(4, dtype=np.float32))
+        else:
+            s = i / (N_CHAIN - 1) * 2 * np.pi
+            gt.append(np.asarray(se3.se3_exp(jnp.asarray(
+                [1.5 * np.sin(s), 0.0, 1.5 * (1 - np.cos(s)), 0, 0, 0], jnp.float32))))
+    est = [gt[0]]
+    bias = np.asarray(se3.se3_exp(jnp.asarray([0.03, 0.015, 0.0, 0.0, 0.004, 0.0], jnp.float32)))
+    for i in range(1, N_CHAIN):
+        rel = gt[i] @ np.linalg.inv(gt[i - 1])
+        est.append((bias @ rel @ est[i - 1]).astype(np.float32))
+    prev_point_ids = None
+    for i in range(N_CHAIN):
+        descs = descs0 if (i == 0 or i == N_CHAIN - 1) else rng.integers(
+            0, 2**32, (N_FEAT, 8), dtype=np.uint32)
+        k = m.add_keyframe(est[i], i, float(i), uv_scene, np.zeros(N_FEAT, np.int32),
+                           np.zeros(N_FEAT, np.float32), descs, np.ones(N_FEAT, bool))
+        Ti = np.linalg.inv(est[i])
+        pw = (pc_scene @ Ti[:3, :3].T + Ti[:3, 3]).astype(np.float32)
+        ids = []
+        for f in range(90):
+            p = m.add_map_point(pw[f], descs[f], k, np.zeros(3, np.float32))
+            m.add_observation(k, f, p)
+            ids.append(p)
+        if prev_point_ids is not None and k > 0:
+            for j in range(30):
+                m.add_observation(k - 1, 90 + j, ids[j])
+        prev_point_ids = ids
+    return cfg, m, gt, est
+
+
+def map_fields(m):
+    """The fields `convert.map_store_from_fields` takes, copied from any map
+    store (either package's)."""
+    from orbslam2_nmi_torch.slam.checkpoint import _MAP_FIELDS
+
+    out = {f: getattr(m, f).copy() for f in _MAP_FIELDS}
+    out.update(n_keyframes=m.n_keyframes, n_points=m.n_points)
+    return out
+
+
+class JaxDraws:
+    """The JAX package's RANSAC draws, for a port solver's `samples` argument:
+    each call splits the key as the JAX package's caller does, then draws
+    each hypothesis's rows with `jax.random.choice(..., replace=False,
+    p=valid/sum)` under a vmap, as inside `sim3_ransac` / `_ransac_core`.
+    Called as the loop closer's `draw_samples(n_rows, n_valid, n_hyp, size)`."""
+
+    def __init__(self, seed):
+        import jax
+
+        self.key = jax.random.PRNGKey(seed)
+
+    @staticmethod
+    def draws(key, n_rows, n_valid, n_hypotheses, size):
+        import jax
+        import jax.numpy as jnp
+
+        probs = (jnp.arange(n_rows) < n_valid).astype(jnp.float32)
+        probs = probs / jnp.maximum(probs.sum(), 1.0)
+        keys = jax.random.split(key, n_hypotheses)
+        return np.asarray(jax.vmap(lambda k: jax.random.choice(
+            k, n_rows, shape=(size,), replace=False, p=probs))(keys)).astype(np.int64)
+
+    def __call__(self, n_rows, n_valid, n_hypotheses, size):
+        import jax
+
+        self.key, sub = jax.random.split(self.key)
+        return self.draws(sub, n_rows, n_valid, n_hypotheses, size)
+
+
+# The reduced loop scene: the reduced mapping scene tracked to frame 14 (key-
+# frames at 10, 12 and 14, so the vocabulary trains), with place recognition
+# wired (`entry.loop_entry`), and a revisit arc whose last frames revisit it.
+LOOP_SCENE = dict(MAP_SCENE, last=14)
+LOOP_ARC = (458, 464, 470, 476, 482, 488)  # the poses of frames -13.8 .. 16.2
+
+
+def loop_scene(device="cpu"):
+    """`entry.loop_entry` on the reduced loop scene, initialized at the true
+    poses and tracked to frame 14 with the worker drained (call
+    `shutdown()`)."""
+    from orbslam2_nmi_torch.entry import loop_entry
+    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, terrain_mesh
+
+    s = LOOP_SCENE
+    world = SyntheticMeshWorld(mesh=terrain_mesh(seed=0, n=s["n_grid"]), fx=s["fx"])
+    session = loop_entry(device=device, height=s["height"], width=s["width"], last=s["last"],
+                         keyframe_every=s["keyframe_every"], world=world,
+                         n_features=s["n_features"], n_cand=s["n_cand"],
+                         max_keyframes=s["max_keyframes"])
+    initialize_at_true_poses(session)
+    for i in session.track_ids:
+        session.track_frame(i)
+    session.flush()
+    return session
