@@ -1,5 +1,6 @@
 """The port's entry points: the NMI pose-grid step, the localizer, the
-tracking step, mapping with NMI initialization, and loop closing.
+tracking step, mapping with NMI initialization, loop closing, and the whole
+system on the circuit.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: one full evaluation of
 the pose grid around a prior pose. It renders every translation candidate of
@@ -31,7 +32,7 @@ step is seeded from ground truth instead of a map:
 replay configuration (`tools/replay_bench.py:113-140`): NMI initialization
 on frames 0 and 8 (`slam/initialization.nmi_initialize`, the latches through
 the localizer on the terrain mesh), then the tracking step against the map
-being built (`MapStoreCandidates`), with a keyframe every 10 frames handed
+being built (`frontend_pipelined.local_candidates`), with a keyframe every 10 frames handed
 to the mapping worker (`slam/pipeline.MappingPipeline`, local mapping and
 local BA):
 
@@ -42,10 +43,20 @@ local BA):
     session.flush()
 
 `loop_entry()` is `mapping_entry()` with place recognition and loop closing
-wired in (`MappingSystem`): the vocabulary trains from the first keyframes,
+wired in (`SLAMSystem`'s): the vocabulary trains from the first keyframes,
 and `add_revisit_arc` then adds a drifted revisit of the circuit's start
 for the loop closer to close (see its docstring); `relocalize_pnp`
 relocalizes a frame against the map by BoW and PnP.
+
+`circuit_entry()` builds the whole system (`slam/system.SLAMSystem`, async
+mapping and async NMI) on the JAX package's full-circuit record, with the
+520 frames of the seed-1 circuit rendered on the device:
+
+    system, frames, poses = circuit_entry()
+    fe = PipelinedFrontend(system)          # slam/frontend_pipelined.py
+    for c0 in range(0, 520, 40):
+        fe.run(frames[c0:c0 + 40], np.arange(c0, c0 + 40) / 30.0, start_id=c0)
+    system.shutdown()
 
 All of them run on CUDA unless the caller passes `device="cpu"` (the CPU
 runs the kernels' plain versions; the tests use it at small sizes).
@@ -53,7 +64,7 @@ runs the kernels' plain versions; the tests use it at small sizes).
 
 from __future__ import annotations
 
-import threading
+import tempfile
 import time
 
 import numpy as np
@@ -66,18 +77,17 @@ from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, raycast_terrain
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, matching, raster, render
 from orbslam2_nmi_torch.slam import initialization
+from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 from orbslam2_nmi_torch.slam.frame import FrameData
+from orbslam2_nmi_torch.slam.frontend_pipelined import (FRUSTUM_MARGIN, bind_step,
+                                                        count_visible_found, local_candidates,
+                                                        step_frame, upload_candidates)
 from orbslam2_nmi_torch.slam.fused_track import (FusedTrackStep, TrackCarry, carry_from_frame,
                                                  unpack_step)
-from orbslam2_nmi_torch.slam.keyframe_database import KeyFrameDatabase
-from orbslam2_nmi_torch.slam.local_mapping import LocalMapper
-from orbslam2_nmi_torch.slam.loop_closing import N_HYPOTHESES, LoopCloser, draw_uniform
+from orbslam2_nmi_torch.slam.loop_closing import draw_uniform
 from orbslam2_nmi_torch.slam.map_store import MapStore
-from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
-from orbslam2_nmi_torch.slam.pipeline import MappingPipeline
-from orbslam2_nmi_torch.slam.vocabulary import Vocabulary
-from orbslam2_nmi_torch.solvers import pnp
-from orbslam2_nmi_torch.utils.bucketing import bucket, pad_rows, row_mask
+from orbslam2_nmi_torch.slam.system import SLAMSystem
+from orbslam2_nmi_torch.slam.tracking import local_keyframes
 from orbslam2_nmi_torch.utils.readback import to_host
 
 NEAR, FAR = 5.0, 40.0
@@ -207,7 +217,6 @@ def localizer_entry(device: str | torch.device = "cuda", height: int = 540, widt
 # ---------------------------------------------------------------------------
 
 KEYFRAME_EVERY = 10  # frames between the ground-truth "keyframes" of the local map
-FRUSTUM_MARGIN = 64.0  # px, the candidate pre-filter's (frontend_pipelined.py:193-215)
 
 
 def tracking_config(world: SyntheticMeshWorld, height: int, width: int,
@@ -328,19 +337,6 @@ class GroundTruthMap:
         return self.upload(self.candidate_arrays(Tcw_last))
 
 
-def upload_candidates(arrays, device: torch.device):
-    """Candidate arrays as tensors on `device`. On CUDA they go through pinned
-    memory with non-blocking copies, so the upload does not wait for the
-    device."""
-    out = []
-    for a in arrays:
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out.append(t.to(device, non_blocking=True))
-    return tuple(out)
-
-
 def tracking_entry(device: str | torch.device = "cuda", height: int = 540, width: int = 960,
                    n_frames: int = 520, first: int = 8, count: int = 48,
                    world: SyntheticMeshWorld | None = None, n_features: int = 2000,
@@ -404,177 +400,6 @@ def mapping_config(world: SyntheticMeshWorld, height: int, width: int, n_feature
     )
 
 
-def local_keyframes(map_store: MapStore, mp_idx: np.ndarray, ref_kf: int):
-    """UpdateLocalKeyFrames as the JAX tracker does it
-    (`Tracker._local_keyframes`, tracking.py:779-798): the keyframes that
-    observe the frame's bound points, most shared first (at most 80), the
-    reference keyframe the first of them, and the 10 best covisibles of the
-    first 10. Returns (keyframes, reference keyframe)."""
-    m = map_store
-    bound = mp_idx[mp_idx >= 0]
-    if len(bound) == 0:
-        return (np.array([ref_kf], np.int64) if ref_kf >= 0 else np.zeros(0, np.int64)), ref_kf
-    counts: dict[int, int] = {}
-    for p in bound:
-        for k in m.mp_obs_kf[p, : m.mp_obs_n[p]]:
-            counts[int(k)] = counts.get(int(k), 0) + 1
-    kfs = sorted(counts, key=counts.get, reverse=True)[:80]
-    if kfs:
-        ref_kf = kfs[0]
-    expanded = set(kfs)
-    for k in kfs[:10]:
-        expanded.update(m.best_covisible(k, 10).tolist())
-    return np.fromiter(expanded, np.int64), ref_kf
-
-
-class MapStoreCandidates:
-    """The step's local-map candidates from the map store: the counterpart of
-    `PipelinedFrontend._local_candidates` (`frontend_pipelined.py:163-233`).
-    The local keyframes' points in keyframe order (the reference keyframe
-    first, then its covisibles), a frustum pre-filter at the last pose with a
-    64 px margin when they exceed `n_cand`, then truncated and padded to
-    `n_cand`; each with the map store's descriptor, distance range and
-    normal. The caller holds the map lock."""
-
-    def __init__(self, map_store: MapStore, cfg: SystemConfig, n_cand: int,
-                 device: torch.device):
-        self.map = map_store
-        self.cfg = cfg
-        self.n_cand = n_cand
-        self.device = device
-
-    def candidate_arrays(self, kfs: np.ndarray, ref_kf: int, Tcw_last: np.ndarray):
-        """(ids [k] map point ids, arrays): the arrays are (pts [C, 3], desc
-        [C, 8] int32, min_d [C], max_d [C], normal [C, 3], valid [C])."""
-        m = self.map
-        C = self.n_cand
-        ids = np.zeros(0, np.int64)
-        if len(kfs):
-            order = [ref_kf] + [int(k) for k in kfs if int(k) != ref_kf]
-            picked = np.zeros(m.mp_valid.shape[0], bool)
-            out = []
-            for k in order:
-                ps = m.kf_mp_idx[k]
-                ps = ps[ps >= 0]
-                ps = ps[m.mp_valid[ps] & ~picked[ps]]
-                if len(ps):
-                    picked[ps] = True
-                    out.append(ps)
-            if out:
-                ids = np.concatenate(out).astype(np.int64)
-            if len(ids) > C:
-                cam = self.cfg.camera
-                pc = m.mp_pos[ids] @ Tcw_last[:3, :3].T + Tcw_last[:3, 3]
-                z = np.maximum(pc[:, 2], 1e-9)
-                u = cam.K[0, 0] * pc[:, 0] / z + cam.K[0, 2]
-                v = cam.K[1, 1] * pc[:, 1] / z + cam.K[1, 2]
-                mg = FRUSTUM_MARGIN
-                vis = ((pc[:, 2] > 0) & (u >= -mg) & (u < cam.width + mg) & (v >= -mg)
-                       & (v < cam.height + mg))
-                ids = ids[vis]
-            ids = ids[:C]
-        k = len(ids)
-        pts = np.zeros((C, 3), np.float32)
-        desc = np.zeros((C, 8), np.int32)
-        min_d = np.ones(C, np.float32)
-        max_d = np.ones(C, np.float32)
-        normal = np.zeros((C, 3), np.float32)
-        valid = np.zeros(C, bool)
-        if k:
-            pts[:k] = m.mp_pos[ids]
-            desc[:k] = m.mp_desc[ids].view(np.int32)
-            min_d[:k] = m.mp_min_dist[ids]
-            max_d[:k] = m.mp_max_dist[ids]
-            normal[:k] = m.mp_normal[ids]
-            valid[:k] = True
-        return ids, (pts, desc, min_d, max_d, normal, valid)
-
-    def upload(self, arrays):
-        return upload_candidates(arrays, self.device)
-
-
-class MappingSystem:
-    """The system object the mapping worker reads (`map`, `local_mapper`,
-    `loop_closer`, `ensure_vocabulary`, and `pipeline` once the session has
-    started it): the place-recognition part of the JAX package's SLAMSystem
-    (`slam/system.py:98-160`), until the system itself is ported.
-
-    With `place_recognition` on, `ensure_vocabulary` buffers keyframe
-    descriptors and trains a k=8, depth=4 vocabulary (seed 0) once 4,096
-    descriptors or 4 keyframes' worth are buffered, on whichever thread calls
-    it then (the tracking thread at a new keyframe, or the mapping worker
-    after local mapping); `_build_place_recognition` then builds the keyframe
-    database (culled keyframes leave it through `map.on_keyframe_removed`)
-    and the loop closer, hands it the pipeline's global-BA launcher, and
-    backfills the keyframes mapped so far. `vocab_record` says when, where
-    and how long. With it off, there is no vocabulary and no loop closer,
-    and `ensure_vocabulary` does nothing."""
-
-    def __init__(self, cfg: SystemConfig, map_store: MapStore, local_mapper: LocalMapper,
-                 place_recognition: bool = False, log_fn=None):
-        self.cfg = cfg
-        self.map = map_store
-        self.local_mapper = local_mapper
-        self.place_recognition = place_recognition
-        self.log = log_fn or (lambda s: None)
-        self.pipeline = None
-        self.vocabulary = None
-        self.database = None
-        self.loop_closer = None
-        self.vocab_record: dict | None = None
-        self._vocab_buffer: list = []
-
-    def _build_place_recognition(self) -> None:
-        self.database = KeyFrameDatabase(self.vocabulary, self.cfg.tracking.max_keyframes,
-                                         max_words=self.cfg.tracking.max_features)
-        # culled KFs must leave the place-recognition DB (KeyFrame.cc:504
-        # erases from KeyFrameDatabase inside SetBadFlag)
-        self.map.on_keyframe_removed.append(self.database.erase)
-        self.loop_closer = LoopCloser(self.cfg, self.map, self.database, self.local_mapper,
-                                      log_fn=self.log, device=self.local_mapper.device)
-        if self.pipeline is not None:  # global BA on its own abortable thread
-            self.loop_closer.gba_launcher = self.pipeline.launch_global_ba
-        # backfill keyframes created before the vocabulary existed
-        with self.map.lock:
-            for k in self.map.valid_keyframe_indices():
-                if not self.database.active[k]:
-                    self.database.add(int(k), self.map.kf_feat_desc[k],
-                                      self.map.kf_feat_valid[k])
-
-    def ensure_vocabulary(self, descriptors, valid, frame_id: int = -1) -> None:
-        """SLAMSystem.ensure_vocabulary (`slam/system.py:123-160`): train the
-        vocabulary from early keyframes if none exists. `frame_id`, the
-        keyframe's frame, only goes into `vocab_record`; the mapping worker
-        calls without it, right after local mapping, so its frame is that of
-        the keyframe the local mapper processed last."""
-        if not self.place_recognition or self.vocabulary is not None:
-            return
-        d = np.asarray(descriptors)[np.asarray(valid)]
-        if len(d):
-            self._vocab_buffer.append(d)
-        n_buf = sum(len(x) for x in self._vocab_buffer)
-        if n_buf < 64:
-            return
-        # train once the buffer is rich enough (or early, for tiny runs)
-        if n_buf < 4096 and len(self._vocab_buffer) < 4:
-            return
-        if frame_id < 0 and self.local_mapper.records:
-            frame_id = int(self.map.kf_frame_id[self.local_mapper.records[-1]["kf"]])
-        t = time.perf_counter()
-        alld = np.concatenate(self._vocab_buffer)
-        self._vocab_buffer = []
-        self.vocabulary = Vocabulary.train(alld, k=8, depth=4, seed=0).to(
-            self.local_mapper.device)
-        t_train = time.perf_counter() - t
-        self._build_place_recognition()
-        self.vocab_record = dict(train_s=t_train, total_s=time.perf_counter() - t,
-                                 thread=threading.current_thread().name, frame=int(frame_id),
-                                 descriptors=len(alld), words=self.vocabulary.n_words,
-                                 keyframes=int(self.map.n_keyframes))
-        self.log(f"trained vocabulary: {self.vocabulary.n_words} words from {len(alld)} "
-                 "descriptors")
-
-
 class MappingSession:
     """The mapping path on one device, driven a step at a time.
 
@@ -583,20 +408,22 @@ class MappingSession:
     - `start(result, f1, f2)`: tracking begins after an initialization on
       f1 and f2: the tracking carry seeded from the second frame with no
       velocity, as after the JAX tracker's `_initialize`;
-    - `track_frame(i)`: one frame through the step against the map, as
-      `PipelinedFrontend._process` handles it (`frontend_pipelined.py:
-      235-354`): bindings from the previous frame and the candidates with
-      duplicates dropped, the visible and found counts, a keyframe every
-      `keyframe_every` frames after initialization, and the carry reseeded
-      from this frame when the map changed. The fixed cadence stands in for
-      `_need_new_keyframe`, which comes with the tracker; the rebase of the
-      chain through the reference keyframe (`Tcr`) comes with it too.
+    - `track_frame(i)`: one frame through the step against the map, with
+      the pipelined front-end's host code (`slam/frontend_pipelined.py`:
+      `local_candidates`, `bind_step`, `count_visible_found`), a keyframe
+      every `keyframe_every` frames after initialization, and the carry
+      reseeded from this frame when the map changed. The fixed cadence and
+      the carry reseeded without a `Tcr` rebase make it a harness of the
+      step and the mapper: `PipelinedFrontend` with `Tracker.
+      _need_new_keyframe` is the system's front-end.
     - `flush()`: waits for the mapping worker and raises its errors.
 
-    The mapping worker starts with the session (`shutdown()` stops it);
-    keyframes go to `keyframe_sink`, its `insert_keyframe`. `system` is the
-    `MappingSystem` the worker reads; with `place_recognition` it trains the
-    vocabulary at a keyframe and closes loops.
+    `system` is a `slam/system.SLAMSystem` with async mapping on the
+    session's device (`map`, `local_mapper`, `localizer` and `pipeline` are
+    its own); its tracker stays unused. The mapping worker starts with the
+    session (`shutdown()` stops it); keyframes go to `keyframe_sink`, the
+    pipeline's `insert_keyframe`. With `place_recognition` the system trains
+    the vocabulary at a keyframe and closes loops.
     """
 
     def __init__(self, world: SyntheticMeshWorld, cfg: SystemConfig, frames: torch.Tensor,
@@ -606,13 +433,11 @@ class MappingSession:
         self.frames, self.poses, self.frame_ids = frames, poses, list(frame_ids)
         self.keyframe_every = keyframe_every
         self.step = FusedTrackStep(cfg, n_cand, device)
-        self.map = MapStore(cfg)
-        self.local_mapper = LocalMapper(cfg, self.map, device=device)
-        self.localizer = NMILocalizer(cfg.nmi, cfg.camera, None, mesh=world.mesh, device=device)
-        self.candidates = MapStoreCandidates(self.map, cfg, n_cand, device)
-        self.system = MappingSystem(cfg, self.map, self.local_mapper, place_recognition)
-        self.pipeline = MappingPipeline(self.system)  # starts the worker thread
-        self.system.pipeline = self.pipeline
+        self.system = SLAMSystem(cfg, nmi_mesh=world.mesh, async_mapping=True, device=device,
+                                 output_dir=tempfile.mkdtemp(prefix="mapping_session_"),
+                                 place_recognition=place_recognition)
+        self.map, self.local_mapper = self.system.map, self.system.local_mapper
+        self.localizer, self.pipeline = self.system.localizer, self.system.pipeline
         self.keyframe_sink = self.pipeline.insert_keyframe
         self.track_ids = [i for i in self.frame_ids if i > INIT_FRAMES[1]]
         self.init_frames: list = []
@@ -671,44 +496,21 @@ class MappingSession:
         t0 = time.perf_counter()
         with m.lock:
             kfs, self.ref_kf = local_keyframes(m, self.last.mp_idx, self.ref_kf)
-            cand_ids, arrays = self.candidates.candidate_arrays(kfs, self.ref_kf, self.last.Tcw)
+            cand_ids, arrays = local_candidates(m, self.cfg, kfs, self.ref_kf, self.last.Tcw,
+                                                step.n_cand)
         t1 = time.perf_counter()
         busy = not self.pipeline.idle()
-        out = step(self.frame(i), self.carry, *self.candidates.upload(arrays))
+        out = step(self.frame(i), self.carry, *upload_candidates(arrays, self.device))
         u = unpack_step(to_host(out.packed), step.n_feat, step.n_cand)
         t2 = time.perf_counter()
 
-        n = step.n_feat
-        prev_mp_idx = self.last.mp_idx
-        mp_idx = np.full(n, -1, np.int32)
-        has_prev = u.src_prev >= 0
-        mp_idx[has_prev] = prev_mp_idx[u.src_prev[has_prev]]
-        has_cand = (u.src_cand >= 0) & (mp_idx < 0)
-        if len(cand_ids):
-            mp_idx[has_cand] = cand_ids[u.src_cand[has_cand]]
-        else:
-            has_cand[:] = False
-        # a landmark bound twice (motion + candidate duplicate): keep the first
-        seen: set = set()
-        for r in np.nonzero(mp_idx >= 0)[0]:
-            p = int(mp_idx[r])
-            if p in seen:
-                mp_idx[r] = -1
-            else:
-                seen.add(p)
-        has_cand &= mp_idx >= 0
+        mp_idx, has_cand, outlier = bind_step(u, self.last.mp_idx, cand_ids)
         bound = mp_idx >= 0
-        outlier = bound & ~u.inlier
-        frame = FrameData(frame_id=i, timestamp=i / self.cfg.camera.fps, Tcw=u.Tcw, xy=u.xy,
-                          xy_raw=u.xy, octave=u.octave, angle=u.angle, desc=u.desc,
-                          valid=u.valid, mp_idx=mp_idx, outlier=outlier)
+        frame = step_frame(u, i, i / self.cfg.camera.fps, mp_idx, outlier)
         k_new = -1
         with m.lock:
             reseed = m.version != self.seen_version  # a map correction landed
-            # visibility / found statistics (Tracking.cc:1412, :1438)
-            if len(cand_ids):
-                m.mp_visible[cand_ids[u.cand_in_view[: len(cand_ids)]]] += 1
-                m.mp_found[mp_idx[has_cand & u.inlier]] += 1
+            count_visible_found(m, cand_ids, u, mp_idx, has_cand)
             still = m.mp_valid[np.maximum(mp_idx, 0)] & bound
             frame.mp_idx = np.where(still, mp_idx, -1)
             self.velocity = u.velocity
@@ -777,7 +579,7 @@ def mapping_entry(device: str | torch.device = "cuda", height: int = 540, width:
     step with `n_cand` candidates, a keyframe every `keyframe_every` frames,
     and the mapping worker started (`shutdown()` stops it). With
     `place_recognition` the session's system trains a vocabulary and closes
-    loops (`MappingSystem`; `loop_entry` turns it on).
+    loops (`SLAMSystem`'s place recognition; `loop_entry` turns it on).
     """
     device = kernels.resolve_device(device, "mapping_entry()")
     world = SyntheticMeshWorld.generate(seed=0) if world is None else world
@@ -875,57 +677,32 @@ def add_revisit_arc(session: MappingSession, frame_ids=REVISIT_ARC, drift=None) 
 
 def relocalize_pnp(session: MappingSession, i: int, frame: torch.Tensor | None = None,
                    generator: torch.Generator | None = None, min_matches: int = 15) -> list:
-    """The BoW + PnP half of the JAX tracker's relocalization
-    (`Tracker._relocalize`, tracking.py:912-965) for frame i (or the uint8
-    image `frame`) at its features: the database's relocalization
-    candidates, each candidate's map points matched to the frame (TH_LOW,
-    ratio 0.75, rotation check; at least `min_matches`), and `pnp_ransac`
-    (EPnP, 128 hypotheses, at least 10 inliers) on samples drawn uniformly on
-    a CPU `generator` (seed 11 by default). The guided expansion to 50
-    inliers comes with the tracker. Returns one dict per candidate tried, up
-    to the first that succeeds: the candidate, its matches, the solver's
-    inputs (host arrays, so the solve can be repeated on another device) and
-    its result."""
-    m, cfg = session.map, session.cfg
+    """The BoW + PnP half of relocalization (`Tracker.pnp_try`, the first
+    half of `Tracker._relocalize`) of frame i (or the uint8 image `frame`)
+    against the session's map, at its features: each of the database's
+    relocalization candidates in turn, up to the first whose PnP succeeds,
+    the samples drawn uniformly on a CPU `generator` (seed 11 by default).
+    Returns the records of the candidates tried (`Tracker.pnp_try`): the
+    candidate, its matches, the solver's inputs (host arrays, so the solve
+    can be repeated on another device) and its result."""
+    m = session.map
     db = session.system.database
     if db is None:
         raise RuntimeError("no keyframe database yet: the vocabulary has not been trained")
     generator = torch.Generator().manual_seed(11) if generator is None else generator
     f = session.features(i, frame)
-    dev = session.device
-    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    inv_s2 = (1.0 / (cfg.orb.scale_factor ** np.arange(cfg.orb.n_levels)) ** 2).astype(np.float32)
+
+    def draw(n_rows, n_valid, n_hyp, size):
+        return draw_uniform(generator, n_valid, n_hyp, size)
+
     tries = []
     with m.lock:
-        cands = db.detect_relocalization_candidates(m, f.desc, f.valid)
-        for cand in cands:
-            has_mp = m.kf_mp_idx[cand] >= 0
-            if has_mp.sum() < min_matches:
+        for cand in db.detect_relocalization_candidates(m, f.desc, f.valid):
+            rec = session.system.tracker.pnp_try(f, cand, min_matches, draw)
+            if rec is None:
                 continue
-            idx, _ = matching.match_descriptors(
-                up(m.kf_feat_desc[cand].view(np.int32)), up(has_mp), up(f.desc.view(np.int32)),
-                up(f.valid), max_dist=matching.TH_LOW, nn_ratio=0.75,
-                angle_a=up(m.kf_feat_angle[cand]), angle_b=up(f.angle), check_rotation=True)
-            idx = to_host(idx)
-            src = np.nonzero(idx >= 0)[0]
-            rec = dict(cand=int(cand), frame=int(m.kf_frame_id[cand]), matches=len(src))
             tries.append(rec)
-            if len(src) < min_matches:
-                continue
-            nb = bucket(len(src))
-            rec["inputs"] = dict(
-                samples=draw_uniform(generator, len(src), N_HYPOTHESES, 4),
-                pts_w=pad_rows(m.mp_pos[m.kf_mp_idx[cand][src]], nb),
-                uv=pad_rows(f.xy[idx[src]], nb),
-                inv_sigma2=pad_rows(inv_s2[f.octave[idx[src]]], nb, 1.0),
-                valid=row_mask(len(src), nb))
-            inp = rec["inputs"]
-            res = pnp.pnp_ransac(up(inp["samples"]), cfg.camera.K, up(inp["pts_w"]),
-                                 up(inp["uv"]), up(inp["inv_sigma2"]), up(inp["valid"]),
-                                 min_inliers=10)
-            rec.update(Tcw=to_host(res.Tcw), n_inliers=int(to_host(res.n_inliers)),
-                       ok=bool(to_host(res.ok)))
-            if rec["ok"]:
+            if rec.get("ok"):
                 break
     return tries
 
@@ -935,7 +712,7 @@ def loop_entry(device: str | torch.device = "cuda", height: int = 540, width: in
     """`mapping_entry`'s session (the full-circuit replay configuration at
     960x540 by default; the same keyword arguments) with the place-
     recognition hooks wired: the vocabulary trains from the first keyframes
-    (`MappingSystem.ensure_vocabulary`), and the keyframe database and the
+    (`SLAMSystem.ensure_vocabulary`), and the keyframe database and the
     loop closer, with the pipeline's global-BA launcher, come with it. Then
     `add_revisit_arc(session)` adds the drifted revisit of the circuit's
     start, and `session.system.loop_closer.process_keyframe(k)` closes the
@@ -955,3 +732,51 @@ def loop_entry(device: str | torch.device = "cuda", height: int = 540, width: in
     kernels.resolve_device(device, "loop_entry()")
     return mapping_entry(device=device, height=height, width=width, place_recognition=True,
                          **kw)
+
+
+# ---------------------------------------------------------------------------
+# The whole system on the circuit
+# ---------------------------------------------------------------------------
+
+CIRCUIT_FRAMES = 520
+CIRCUIT_SEED = 1  # the JAX package's records come from the seed-1 world
+
+
+def circuit_system(device: str | torch.device = "cuda", asynchronous: bool = True):
+    """(system, world): `circuit_entry`'s system, without the imagery: a
+    fresh `SLAMSystem` on the seed-1 world's circuit configuration, its
+    workers started and its init poses set. With `asynchronous` off, local
+    mapping and the keyframes' NMI sweeps run synchronously, at the keyframe
+    that asks for them."""
+    device = kernels.resolve_device(device, "circuit_system()")
+    n = CIRCUIT_FRAMES
+    world = SyntheticMeshWorld.generate(seed=CIRCUIT_SEED)
+    cfg = mapping_config(world, 540, 960)
+    system = SLAMSystem(cfg, nmi_mesh=world.mesh, async_mapping=asynchronous,
+                        async_nmi=asynchronous, device=device,
+                        output_dir=tempfile.mkdtemp(prefix="circuit_"))
+    system.set_init_poses(world.pose_at(0, n), world.pose_at(cfg.nmi.offset, n))
+    return system, world
+
+
+def circuit_entry(device: str | torch.device = "cuda"):
+    """(system, frames, poses): the whole system on the JAX package's full-
+    circuit record (`tools/replay_bench.build_system` and `generate_sequence`,
+    FULL_CIRCUIT_r05.json): the seed-1 standard world, the `mapping_config`
+    configuration at its defaults (960x540, 2,000 features on 8 levels, NMI
+    offset 8, threshold 0.45, 4 iterations, coarse_scale 2, reloc_frequency
+    2, max_frames 30, 512 keyframes), async mapping and async NMI, the
+    localizer on the world's own mesh, and the init poses frames 0 and 8's
+    true poses (`circuit_system`).
+
+    - `system`: a `SLAMSystem` on `device` (its workers started; call
+      `shutdown()`), to drive through `PipelinedFrontend(system).run`;
+    - `frames`: all 520 frames, uint8 [520, 540, 960] on `device`, rendered
+      by `SyntheticMeshWorld.render_frames` (B3 and the sampler);
+    - `poses`: [520, 4, 4] float32 true poses.
+    """
+    system, world = circuit_system(device)
+    n = CIRCUIT_FRAMES
+    frames = world.render_frames(list(range(n)), n, 960, 540, device=system.device)
+    poses = np.stack([world.pose_at(i, n) for i in range(n)])
+    return system, frames, poses

@@ -1,9 +1,15 @@
-"""Synthetic terrain world: the circuit the tracking front-end is driven on.
+"""Synthetic worlds and sequences: the replay oracle with exact ground truth.
 
-Port of the mesh half of `orbslam2_nmi_tpu/io/synthetic.py`:
-`terrain_mesh` (the same `default_rng` draws, so the mesh and its texture
-are the JAX package's bit for bit) and `SyntheticMeshWorld` (`generate`,
-`camera_K`, `pose_at`, `render_frames`, `near_far`). Frames are rendered
+Port of `orbslam2_nmi_tpu/io/synthetic.py`:
+  * `SyntheticWorld`, the textured point world of the end-to-end tests,
+    rendered by the port's point splat (`ops/render.render_pointcloud`);
+  * `terrain_mesh` (the same `default_rng` draws, so the mesh and its
+    texture are the JAX package's bit for bit) and `SyntheticMeshWorld`
+    (`generate`, `generate_wide`, `camera_K`, `pose_at`, `render_frames`,
+    `near_far`, `lit_mesh`);
+  * `apply_photometric_gap`, the camera-degradation stack of the domain-gap
+    runs.
+Frames of the mesh world are rendered
 with the port's own tiled rasterizer (`ops/raster.py`: host binning, kernel
 B3 and the sampler on CUDA), each at its exact pose, as the JAX package
 renders its circuit. The port's sampler reads the resident texture whole,
@@ -18,14 +24,70 @@ intersection of world rays with it.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel
-from orbslam2_nmi_torch.ops import raster
+from orbslam2_nmi_torch.ops import raster, render
+from orbslam2_nmi_torch.utils.readback import to_host
+
+
+def _rotation(pitch: float, yaw: float) -> np.ndarray:
+    return se3.so3_exp(torch.tensor([pitch, yaw, 0.0], dtype=torch.float32)).numpy()
+
+
+@dataclass
+class SyntheticWorld:
+    """A textured undulating point terrain ~15 m below a forward camera path:
+    the oracle of the end-to-end tests (`tests/test_slam_e2e.py`)."""
+
+    points: np.ndarray  # [P, 3] float32
+    gray: np.ndarray  # [P] float32
+    fx: float = 260.0
+
+    @staticmethod
+    def generate(seed: int = 0, n_points: int = 120_000) -> "SyntheticWorld":
+        """High-frequency blocky texture on the terrain (rich in FAST corners)."""
+        rng = np.random.default_rng(seed)
+        x = rng.uniform(-30, 60, n_points)
+        y = rng.uniform(-25, 25, n_points)
+        z = 15.0 + 2.5 * np.sin(x * 0.35) * np.cos(y * 0.3) + rng.uniform(0, 0.3, n_points)
+        pts = np.stack([x, y, z], axis=-1).astype(np.float32)
+        gray = ((np.floor(x * 1.3) * 53 + np.floor(y * 1.3) * 101 + np.floor(z * 2.0) * 29) % 200
+                + 28).astype(np.float32)
+        return SyntheticWorld(points=pts, gray=gray)
+
+    def pose_at(self, i: int, n_frames: int) -> np.ndarray:
+        """Ground-truth Tcw along a smooth forward path with a gentle yaw."""
+        s = i / max(n_frames - 1, 1)
+        t = np.array([12.0 * s, 1.5 * np.sin(s * 2.0), 0.0], np.float32)
+        R = _rotation(0.04 * np.sin(s * 2.0), 0.10 * np.sin(s * 3.0))
+        Tcw = np.eye(4, dtype=np.float32)
+        Tcw[:3, :3] = R
+        Tcw[:3, 3] = -R @ t
+        return Tcw
+
+    def camera_K(self, width: int, height: int) -> np.ndarray:
+        return np.array([[self.fx, 0, width / 2], [0, self.fx, height / 2], [0, 0, 1]],
+                        np.float32)
+
+    def render_model(self, device="cuda") -> render.RenderModel:
+        device = kernels.resolve_device(device, "SyntheticWorld.render_model()")
+        return render.RenderModel(points=torch.from_numpy(self.points).to(device),
+                                  gray=torch.from_numpy(self.gray).to(device))
+
+    def render_frame(self, i: int, n_frames: int, width: int, height: int,
+                     device="cuda") -> np.ndarray:
+        """Frame i as uint8 [H, W] on the host, splatted on `device`."""
+        img = render.render_pointcloud(self.render_model(device), self.pose_at(i, n_frames),
+                                       self.camera_K(width, height), height, width, near=2.0,
+                                       far=40.0, point_size=3)
+        return np.clip(to_host(img), 0, 255).astype(np.uint8)
 
 
 def terrain_height(x, y, base_z=15.0, relief=3.0):
@@ -46,12 +108,13 @@ def raycast_terrain(Twc_center, dirs_w):
 
 
 def terrain_mesh(seed: int = 0, n: int = 190, extent=(40.0, 30.0), base_z: float = 15.0,
-                 relief: float = 3.0) -> MeshModel:
+                 relief: float = 3.0, marks: int = 0) -> MeshModel:
     """Textured undulating height-field mesh: 2(n-1)^2 triangles with a
     multi-scale random-block 512x512 texture. Piecewise-constant blocks give
     descriptors that repeat under sub-pixel view shifts, and block edges at
     three scales (~0.6 m, 1.25 m and 5 m on the ground) give FAST corners
-    across the whole pyramid."""
+    across the whole pyramid. `marks` small rotated elliptical patches break
+    the block texture's self-similarity for place recognition."""
     rng = np.random.default_rng(seed)
     ex, ey = extent
     xs = np.linspace(-ex, ex, n)
@@ -71,6 +134,18 @@ def terrain_mesh(seed: int = 0, n: int = 190, extent=(40.0, 30.0), base_z: float
         return np.kron(r, np.ones((512 // n_block, 512 // n_block)))
 
     tex = (15.0 + _blocks(128, 95) + _blocks(64, 75) + _blocks(16, 60)).clip(10, 245)
+    if marks:
+        yy, xx = np.mgrid[0:512, 0:512].astype(np.float32)
+        for _ in range(marks):
+            cx, cy = rng.uniform(10, 502, 2)
+            a, b = rng.uniform(1.2, 4.0, 2)
+            th = rng.uniform(0, np.pi)
+            g = rng.uniform(0, 255)
+            dx, dy = xx - cx, yy - cy
+            u = dx * np.cos(th) + dy * np.sin(th)
+            v = -dx * np.sin(th) + dy * np.cos(th)
+            tex[(u / a) ** 2 + (v / b) ** 2 < 1.0] = g
+        tex = tex.clip(10, 245)
     return MeshModel(vertices=verts, uvs=uvs, faces=faces, texture_gray=tex.astype(np.float32))
 
 
@@ -89,6 +164,16 @@ class SyntheticMeshWorld:
     def generate(seed: int = 0, n_grid: int = 190) -> "SyntheticMeshWorld":
         return SyntheticMeshWorld(mesh=terrain_mesh(seed=seed, n=n_grid))
 
+    @staticmethod
+    def generate_wide(seed: int = 0, n_grid: int = 190) -> "SyntheticMeshWorld":
+        """The loop-closure variant: a large circuit under a narrow field of
+        view (fx 700, a ~+-10 m ground footprint against a 32x18 m ellipse),
+        so opposite arcs see disjoint terrain and the revisit is a true loop
+        closure; on the standard circuit every keyframe stays covisible with
+        every other."""
+        return SyntheticMeshWorld(mesh=terrain_mesh(seed=seed, n=n_grid, marks=500), fx=700.0,
+                                  radius_x=16.0, radius_y=9.0, overlap=0.15)
+
     def camera_K(self, width: int, height: int) -> np.ndarray:
         return np.array([[self.fx, 0, width / 2], [0, self.fx, height / 2], [0, 0, 1]],
                         np.float32)
@@ -104,9 +189,7 @@ class SyntheticMeshWorld:
              0.6 * np.sin(3.0 * th)],
             np.float32,
         )
-        yaw = 0.08 * np.sin(2.0 * th)
-        pitch = 0.05 * np.sin(th + 0.7)
-        R = se3.so3_exp(torch.tensor([pitch, yaw, 0.0], dtype=torch.float32)).numpy()
+        R = _rotation(0.05 * np.sin(th + 0.7), 0.08 * np.sin(2.0 * th))
         Tcw = np.eye(4, dtype=np.float32)
         Tcw[:3, :3] = R
         Tcw[:3, 3] = -R @ t
@@ -140,3 +223,60 @@ class SyntheticMeshWorld:
     @staticmethod
     def near_far() -> tuple:
         return 4.0, 45.0
+
+    def lit_mesh(self, sun=(0.45, 0.30, 0.85), ambient: float = 0.30) -> MeshModel:
+        """A photometrically divergent copy of the terrain mesh: the texture
+        modulated by Lambertian terrain shading from a sun direction. Camera
+        frames rendered from it no longer match the flat prior texture the
+        localizer keeps (the reference's operating condition, README.md:1-76).
+        The height field's planar UV makes the light map bakeable per texel."""
+        mesh = self.mesh
+        th, tw = mesh.texture_gray.shape
+        n = int(np.sqrt(len(mesh.vertices)))
+        Z = mesh.vertices[:, 2].reshape(n, n)  # [y, x] (meshgrid indexing=xy)
+        X = mesh.vertices[:, 0].reshape(n, n)
+        Y = mesh.vertices[:, 1].reshape(n, n)
+        dzdx = np.gradient(Z, X[0, :], axis=1)
+        dzdy = np.gradient(Z, Y[:, 0], axis=0)
+        nrm = np.stack([-dzdx, -dzdy, np.ones_like(Z)], -1)
+        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+        sun = np.asarray(sun, np.float64)
+        sun = sun / np.linalg.norm(sun)
+        light = ambient + (1.0 - ambient) * np.clip(nrm @ sun, 0.0, None)
+        # texture row 0 is v = 1 (the sampler's GL flip), i.e. y = +ey: flip rows
+        li = np.clip(_bilinear_resize(light[::-1, :], th, tw), 0.0, 1.2)
+        tex = np.clip(mesh.texture_gray * li, 0.0, 255.0).astype(np.float32)
+        return dataclasses.replace(mesh, texture_gray=tex)
+
+
+def _bilinear_resize(a: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Plain-numpy separable bilinear resize of a 2-D array."""
+    ys = np.linspace(0, a.shape[0] - 1, h)
+    xs = np.linspace(0, a.shape[1] - 1, w)
+    y0 = np.clip(ys.astype(np.int64), 0, a.shape[0] - 2)
+    x0 = np.clip(xs.astype(np.int64), 0, a.shape[1] - 2)
+    ay = (ys - y0)[:, None]
+    ax = (xs - x0)[None, :]
+    r0 = a[y0][:, x0] * (1 - ax) + a[y0][:, x0 + 1] * ax
+    r1 = a[y0 + 1][:, x0] * (1 - ax) + a[y0 + 1][:, x0 + 1] * ax
+    return r0 * (1 - ay) + r1 * ay
+
+
+def apply_photometric_gap(frames: np.ndarray, seed: int = 0, noise_sigma: float = 4.0,
+                          gamma: float = 1.25, vignette: float = 0.35) -> np.ndarray:
+    """Screen-space camera degradation of rendered uint8 frames [N, H, W]:
+    smooth per-frame exposure drift, radial vignette, gamma, sensor noise
+    (host numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    n, h, w = frames.shape
+    yy, xx = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+    vig = 1.0 - vignette * np.clip(xx * xx + yy * yy, 0.0, 1.0)
+    t = np.arange(n) / max(n - 1, 1)
+    gain = 0.8 + 0.4 * np.sin(2.5 * np.pi * t + 0.7) * 0.5 + 0.1 * t
+    out = np.empty_like(frames)
+    for i in range(n):
+        f = frames[i].astype(np.float32) / 255.0
+        f = np.clip(f * gain[i] * vig, 0.0, 1.0) ** gamma
+        f = f * 255.0 + rng.normal(0.0, noise_sigma, (h, w))
+        out[i] = np.clip(f, 0, 255).astype(frames.dtype)
+    return out

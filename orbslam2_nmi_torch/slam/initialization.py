@@ -10,8 +10,10 @@ both flagged NMI-relocalized, hold the new map points; a global BA of 20
 iterations with both keyframes fixed follows. The map's scale is then metric
 and its frame the model's (SURVEY §3.4).
 
-The tracker of a later slice calls `nmi_initialize` from its
-`_initialize`; until then `entry.mapping_entry` does.
+`create_initial_map` is the map-building half on frames already posed:
+`Tracker._initialize` (`slam/tracking.py`) latches each frame itself,
+through its own NMI bookkeeping, and calls it; `nmi_initialize` latches and
+then calls it (`entry.mapping_entry`'s sessions).
 """
 
 from __future__ import annotations
@@ -60,15 +62,29 @@ def nmi_initialize(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
     With a `localizer`, each frame is first latched by NMI against its gray
     image; without one the seed poses stand, and the second keyframe is
     flagged NMI-relocalized as the JAX tracker flags it when it has no
-    localizer. On success f2's `mp_idx` binds the new points and its pose is
-    its keyframe's after the global BA. On the JAX package's aborts (fewer
-    than 20 matches or 15 triangulated points) the map is left untouched.
+    localizer. Then `create_initial_map`.
     """
-    log = log_fn or (lambda s: None)
     latches = []
     if localizer is not None:
         latches = [nmi_latch(localizer, f1, gray1), nmi_latch(localizer, f2, gray2)]
-    dev = local_mapper.device
+    res = create_initial_map(cfg, map_store, local_mapper, f1, f2,
+                             k2_anchored=f2.nmi_relocalized or localizer is None, log_fn=log_fn)
+    return res._replace(latches=latches)
+
+
+def create_initial_map(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
+                       k2_anchored: bool, log_fn=None, device=None) -> InitResult:
+    """The map's first two keyframes from f1 and f2 at their poses
+    (tracking.py:312-383): their features matched (TH_LOW, ratio 0.9,
+    rotation check), the matches triangulated and gated, both keyframes
+    added (the first flagged NMI-relocalized, the second if `k2_anchored`)
+    with the new points, then a global BA of 20 iterations when there is a
+    `local_mapper` (on whose device the solves run, else on `device`). On
+    success f2's `mp_idx` binds the new points and its pose is its
+    keyframe's after the BA. On the JAX package's aborts (fewer than 20
+    matches or 15 triangulated points) the map is left untouched."""
+    log = log_fn or (lambda s: None)
+    dev = local_mapper.device if local_mapper is not None else torch.device(device)
 
     def up(a, dtype=None):
         a = np.ascontiguousarray(a if dtype is None else a.astype(dtype))
@@ -87,9 +103,10 @@ def nmi_initialize(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
     m2 = idx[m1]
     if len(m1) < MIN_MATCHES:
         log(f"init: only {len(m1)} matches, retrying with next frame pair")
-        return InitResult(False, len(m1), 0, -1, -1, latches)
+        return InitResult(False, len(m1), 0, -1, -1, [])
 
-    inv_sigma2 = local_mapper.inv_sigma2
+    n_lv, sf = cfg.orb.n_levels, cfg.orb.scale_factor
+    inv_sigma2 = (1.0 / (sf ** np.arange(n_lv)) ** 2).astype(np.float32)
     nb = bucket(len(m1))
     tri = triangulate.triangulate_and_gate(
         up(cfg.camera.K, np.float32), up(f1.Tcw, np.float32), up(f2.Tcw, np.float32),
@@ -102,7 +119,7 @@ def nmi_initialize(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
     pts = to_host(tri.points_w)[: len(m1)]
     if ok.sum() < MIN_POINTS:
         log(f"init: only {int(ok.sum())} triangulated, aborting this pair")
-        return InitResult(False, len(m1), int(ok.sum()), -1, -1, latches)
+        return InitResult(False, len(m1), int(ok.sum()), -1, -1, [])
 
     # the two NMI-anchored keyframes + map points
     m = map_store
@@ -110,8 +127,7 @@ def nmi_initialize(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
         k1 = m.add_keyframe(f1.Tcw, f1.frame_id, f1.timestamp, f1.xy, f1.octave, f1.angle,
                             f1.desc, f1.valid, nmi_relocalized=True)
         k2 = m.add_keyframe(f2.Tcw, f2.frame_id, f2.timestamp, f2.xy, f2.octave, f2.angle,
-                            f2.desc, f2.valid,
-                            nmi_relocalized=f2.nmi_relocalized or localizer is None)
+                            f2.desc, f2.valid, nmi_relocalized=bool(k2_anchored))
         for i in np.nonzero(ok)[0]:
             fa, fb = int(m1[i]), int(m2[i])
             p = m.add_map_point(pts[i], f1.desc[fa], k1, np.zeros(3, np.float32))
@@ -121,8 +137,9 @@ def nmi_initialize(cfg, map_store, local_mapper, f1: FrameData, f2: FrameData,
             f2.mp_idx[fb] = p
 
     # global BA on the initial map (20 iterations, both KFs fixed by the flag)
-    local_mapper.global_ba(iters=20)
-    f2.Tcw = m.kf_Tcw[k2].copy()
+    if local_mapper is not None:
+        local_mapper.global_ba(iters=20)
+        f2.Tcw = m.kf_Tcw[k2].copy()
     log(f"NMI initialization: {int(ok.sum())} map points from frames "
         f"{f1.frame_id}/{f2.frame_id}")
-    return InitResult(True, len(m1), int(ok.sum()), k1, k2, latches)
+    return InitResult(True, len(m1), int(ok.sum()), k1, k2, [])

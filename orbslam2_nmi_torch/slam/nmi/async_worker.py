@@ -66,14 +66,15 @@ class AsyncNMI:
     def submit(
         self,
         k: int,
-        gray: np.ndarray,
+        gray,
         Tcw: np.ndarray,
         dist_since: np.ndarray,
         rot_since: np.ndarray,
         frame_id: int,
     ) -> bool:
         """Queue a sweep for keyframe k (False when one is already running).
-        Called with the map lock held — all tracker state the sweep needs
+        `gray` is the keyframe's image, numpy or a tensor (copied either
+        way). Called with the map lock held — all tracker state the sweep needs
         (incl. the failure streak that sizes the widening) is snapshotted
         HERE so the worker never reads mutable tracker/localizer state from
         its own thread."""
@@ -82,10 +83,14 @@ class AsyncNMI:
                 return False
             self._busy = True
             self._idle.clear()
+        if isinstance(gray, torch.Tensor):  # a device image stays on the device
+            gray = gray.to(torch.float32, copy=True)
+        else:
+            gray = np.asarray(gray, np.float32).copy()
         self.q.put(
             (
                 int(k),
-                np.asarray(gray, np.float32).copy(),
+                gray,
                 np.asarray(Tcw, np.float32).copy(),
                 np.asarray(dist_since, np.float64).copy(),
                 np.asarray(rot_since, np.float64).copy(),

@@ -26,7 +26,7 @@ their device work on a stream of their own (`self.stream`), so a tracking
 step replayed on the tracking thread's stream does not queue behind a BA;
 each thread's result reaches the host through a copy that waits for that
 stream only. `system` is any object with `map`, `local_mapper`,
-`loop_closer` and `ensure_vocabulary` (`entry.MappingSystem`): while its
+`loop_closer` and `ensure_vocabulary` (`slam/system.SLAMSystem`): while its
 `loop_closer` is None the worker offers it each keyframe's descriptors
 (the vocabulary may train then, and the loop closer appear); once it
 exists, the worker runs loop closing on each keyframe after local mapping,

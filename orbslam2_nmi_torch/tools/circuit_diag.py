@@ -1,0 +1,222 @@
+"""Per-frame diagnostic drive of the 520-frame circuit: keyframe decisions.
+
+    python3 -m orbslam2_nmi_torch.tools.circuit_diag [--mapper async|idle|drained|sync ...]
+        [--out DIR]
+
+From the root of a checkout, one GPU. It builds `entry.circuit_entry()` (the
+seed-1 circuit at 960x540, async mapping and async NMI) and drives it through
+`PipelinedFrontend.run` in chunks of 40 frames, as `chip_smoke.py`'s system
+phase does (the JAX package's `tools/circuit_diag.py`). With `--mapper idle`
+the mapping worker is drained after every fused frame, so each keyframe
+decision meets an idle mapper, as it would behind a tracker much slower than
+the mapper; with `--mapper drained` the NMI worker is drained too, so each
+anchor lands before the next frame is dispatched. With `--mapper sync` the
+system has no workers: local mapping and the keyframes' NMI sweeps run at
+the keyframe that asks for them. Several modes run one after another on the
+same rendered frames, each on a fresh system.
+
+It writes one JSON row a frame to DIR/rows_<run>_<mapper>.jsonl (path,
+inliers, online error, keyframe, and the inputs of the keyframe decision: c1a, c1b,
+c2, the mapper idle, the reference keyframe and its points seen from at least
+`min_obs` keyframes) and prints a summary: frames tracked, keyframes created
+and surviving, NMI anchors, ATE of the recomposed trajectory, and the
+decisions counted by cause: frames where c2 held, those of them refused
+because the mapper was busy, keyframes made by c2 and by the 30-frame
+cadence alone; the map points' observation counts; and each keyframe's NMI
+sweep with the camera-centre error of the keyframe's pose before the sweep
+and of the pose the sweep found. Every time is printed with the card's
+`nvidia-smi` line. It refuses to run without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from orbslam2_nmi_torch.entry import circuit_entry, circuit_system
+from orbslam2_nmi_torch.io.trajectory import ate_rmse, recompose_trajectory
+from orbslam2_nmi_torch.slam.frontend_pipelined import PipelinedFrontend
+from orbslam2_nmi_torch.slam.tracking import TrackingState
+
+CHUNK = 40  # frames a PipelinedFrontend.run call
+
+
+def _center(T) -> np.ndarray:
+    T = np.asarray(T, np.float64)
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+def decision_counts(records: dict) -> dict:
+    """The keyframe decisions of the fused frames (`PipelinedFrontend.records`
+    with `Tracker.kf_check`) counted by cause."""
+    checks = [(r, r["kf_check"]) for r in records.values()
+              if r["path"] == "fused" and r.get("kf_check")]
+    c2 = [(r, c) for r, c in checks if c["c2"]]
+    return dict(
+        decisions=len(checks),
+        c2_held=len(c2),
+        c2_held_mapper_busy=sum(1 for _, c in c2 if not c["idle"]),
+        c2_refused_mapper_busy=sum(1 for r, c in c2 if not c["idle"] and not r["keyframe"]),
+        keyframes=sum(1 for r, _ in checks if r["keyframe"]),
+        keyframes_by_c2=sum(1 for r, c in checks if r["keyframe"] and c["c2"]),
+        keyframes_by_cadence_alone=sum(1 for r, c in checks
+                                       if r["keyframe"] and c["c1a"] and not c["c2"]),
+        mapper_idle_share=float(np.mean([c["idle"] for _, c in checks])) if checks else None,
+        inliers_over_ref_tracked_p50=float(np.median(
+            [c["inliers"] / max(c["ref_tracked"], 1) for _, c in checks])) if checks else None,
+    )
+
+
+def record_sweeps(system, poses) -> list:
+    """Record each keyframe NMI sweep of `system` as it lands (a list the
+    sweeps are appended to): frame, whether it relocalized, and the camera-
+    centre error against `poses` of the keyframe's pose before the sweep and
+    of the pose it found. Installed before the drive; frames past `poses`
+    are not recorded."""
+    sweeps: list = []
+
+    def row(frame_id, before, found, relocalized):
+        if frame_id >= len(poses):  # a frame beyond the circuit has no truth
+            return
+        truth = _center(poses[frame_id])
+        sweeps.append(dict(frame=int(frame_id), relocalized=bool(relocalized),
+                           err_before_m=float(np.linalg.norm(_center(before) - truth)),
+                           err_found_m=float(np.linalg.norm(_center(found) - truth))))
+
+    worker, tr = system.nmi_worker, system.tracker
+    if worker is not None:
+        apply = worker._apply
+
+        def recorded_apply(k, out, dist0, rot0, frame_id, epoch):
+            with system.map.lock:
+                before = system.map.kf_Tcw[k].copy()
+            row(frame_id, before, out.Tcw, out.relocalized)
+            return apply(k, out, dist0, rot0, frame_id, epoch)
+
+        worker._apply = recorded_apply
+    else:
+        run = tr._run_nmi
+
+        def recorded_run(frame, initializing, search_scale=1.0):
+            before = frame.Tcw.copy()
+            ok = run(frame, initializing, search_scale)
+            if not initializing:
+                row(frame.frame_id, before, frame.Tcw, ok)
+            return ok
+
+        tr._run_nmi = recorded_run
+    return sweeps
+
+
+def drive(system, frames, poses, mapper: str = "async") -> tuple:
+    """Drive `system` (fresh, from `entry.circuit_system`) over `frames`
+    through `PipelinedFrontend.run` in chunks of 40; with `mapper` "idle"
+    the mapping worker is drained after every fused frame, with "drained"
+    both workers, an anchor's local BA included ("async" and "sync" drive
+    the system as it is built). Drains the workers and shuts
+    the system down. Returns (front-end, results, summary dict); the
+    summary's `worker_errors` holds the workers' errors."""
+    n = frames.shape[0]
+    m, tr = system.map, system.tracker
+    fe = PipelinedFrontend(system)
+    if mapper == "idle":
+        fe.debug_hook = lambda fid, frame, u: system.pipeline.flush(600.0)
+    elif mapper == "drained":  # an anchor queues its local BA before the worker goes idle
+        fe.debug_hook = lambda fid, frame, u: (system.nmi_worker.flush(600.0),
+                                               system.pipeline.flush(600.0))
+    sweeps = record_sweeps(system, poses)
+    ts = np.arange(n) / system.cfg.camera.fps
+    results = []
+    t0 = time.perf_counter()
+    try:
+        for c0 in range(0, n, CHUNK):
+            results.extend(fe.run(frames[c0:c0 + CHUNK], ts[c0:c0 + CHUNK], start_id=c0))
+        drive_s = time.perf_counter() - t0
+        for worker in (system.nmi_worker, system.pipeline):
+            if worker is not None:
+                worker.flush(600.0)
+        errors = system.errors()
+        with m.lock:
+            rows = recompose_trajectory(tr.trajectory, m)
+            vk = m.valid_keyframe_indices()
+            anchors = [int(f) for f, a in zip(m.kf_frame_id[vk], m.kf_nmi_reloc[vk]) if a]
+            kf_frames = [int(f) for f in m.kf_frame_id[: m.n_keyframes]]
+            obs = m.mp_obs_n[m.valid_point_indices()]
+    finally:
+        system.shutdown()
+    tracked = [i for i, r in enumerate(results)
+               if r is not None and r.state == TrackingState.OK and r.Tcw is not None]
+    ate = ate_rmse([r[2] for r in rows], [poses[r[0]] for r in rows], align=False)
+    snapped = [w for w in sweeps if w["relocalized"]]
+    summary = dict(
+        mapper=mapper, frames=n, tracked=len(tracked), keyframes_created=len(kf_frames),
+        keyframes_surviving=int(len(vk)), keyframe_frames=kf_frames, anchors=len(anchors),
+        anchor_frames=anchors, ate_rmse_m=float(ate), map_points=int(len(obs)),
+        point_obs=dict(mean=float(obs.mean()), share_ge3=float((obs >= 3).mean())),
+        decisions=decision_counts(fe.records), rewinds=fe.n_rewinds, drive_s=drive_s,
+        frames_per_s=n / drive_s, nmi_sweeps=len(sweeps), nmi_snapped=len(snapped),
+        nmi_err_before_m=float(np.mean([w["err_before_m"] for w in snapped])) if snapped else None,
+        nmi_err_found_m=float(np.mean([w["err_found_m"] for w in snapped])) if snapped else None,
+        sweeps=sweeps, worker_errors=errors)
+    return fe, results, summary
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--mapper", choices=("async", "idle", "drained", "sync"), nargs="+",
+                   default=["async"],
+                   help="idle: drain the mapping worker after every fused frame; drained: "
+                   "both workers; sync: no workers (several modes run one after another)")
+    p.add_argument("--out", default="build/circuit_diag")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("circuit_diag: CUDA is not available; this tool drives the circuit on an NVIDIA "
+              "GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    os.makedirs(args.out, exist_ok=True)
+    t = time.perf_counter()
+    system, frames, poses = circuit_entry("cuda")
+    if args.mapper[0] == "sync":
+        system.shutdown()
+        system = None
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    failed = False
+    for run, mode in enumerate(args.mapper):
+        if system is None:
+            system = circuit_system("cuda", asynchronous=mode != "sync")[0]
+        fe, results, summary = drive(system, frames, poses, mode)
+        system = None
+        errors = summary.pop("worker_errors")
+        summary.update(render_s=render_s, worker_errors=len(errors), device=smi)
+        with open(os.path.join(args.out, f"rows_{run}_{mode}.jsonl"), "w") as f:
+            for i, r in enumerate(results):
+                row = dict(i=i, state=r.state.name if r is not None else "none")
+                if r is not None and r.Tcw is not None:
+                    row["err_m"] = float(np.linalg.norm(_center(r.Tcw) - _center(poses[i])))
+                rec = fe.records.get(i, {})
+                row.update({k: rec[k] for k in ("path", "n_inliers", "keyframe", "kf_check")
+                            if k in rec})
+                f.write(json.dumps(row) + "\n")
+        with open(os.path.join(args.out, f"summary_{run}_{mode}.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps({k: v for k, v in summary.items()
+                          if k not in ("keyframe_frames", "sweeps")}), flush=True)
+        if errors:
+            print(errors[0], file=sys.stderr)
+            failed = True
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch.entry import mapping_entry
+from orbslam2_nmi_torch.slam.frontend_pipelined import local_candidates, upload_candidates
 from orbslam2_nmi_torch.solvers import local_ba
 from orbslam2_nmi_torch.utils.readback import to_host
 
@@ -103,9 +104,10 @@ def main() -> int:
     step = session.step
     with session.map.lock:
         kfs = np.nonzero(session.map.kf_valid[: session.map.n_keyframes])[0]
-        _, arrays = session.candidates.candidate_arrays(kfs, session.ref_kf, session.last.Tcw)
+        _, arrays = local_candidates(session.map, session.cfg, kfs, session.ref_kf,
+                                     session.last.Tcw, session.step.n_cand)
     args = (session.frame(session.track_ids[-1]), session.carry,
-            *session.candidates.upload(arrays))
+            *upload_candidates(arrays, session.device))
 
     def replay():
         return step.replay(*args)

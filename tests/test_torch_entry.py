@@ -146,8 +146,11 @@ def test_port_never_imports_jax():
     """Running the port's entry, its localizer (one strategy on the textured
     mesh, and one grid on the point model), its tracking step (one frame
     of `tracking_entry`), the native map core, a bundle adjustment, a
-    vocabulary's training and descent, a pose graph, a Sim3 RANSAC and a
-    PnP on the CPU, with every mapping and loop-closing module imported,
+    vocabulary's training and descent, a pose graph, a Sim3 RANSAC, a PnP,
+    the system on six frames through the pipelined front-end (its keyframe
+    decisions counted by `tools/circuit_diag`), a saved
+    trajectory and a two-view initialization on the CPU, with every mapping,
+    loop-closing, system and replay module imported,
     leaves jax and the JAX package out of sys.modules, and no file of the
     port (nor chip_smoke.py) imports them."""
     code = (
@@ -173,7 +176,7 @@ def test_port_never_imports_jax():
         "out = step(frames[0], carry, *cands(carry.Tcw.numpy()))\n"
         "assert out.packed.shape == (35 + 17 * step.n_feat + step.n_cand,), out.packed.shape\n"
         "from orbslam2_nmi_torch import convert, native\n"
-        "from orbslam2_nmi_torch.entry import mapping_entry, MapStoreCandidates\n"
+        "from orbslam2_nmi_torch.entry import mapping_entry, MappingSession\n"
         "from orbslam2_nmi_torch.slam import checkpoint, initialization, local_mapping, pipeline\n"
         "from orbslam2_nmi_torch.utils import bucketing\n"
         "from orbslam2_nmi_torch.solvers import local_ba\n"
@@ -208,6 +211,33 @@ def test_port_never_imports_jax():
         "samples = torch.stack([torch.randperm(16, generator=g)[:4] for _ in range(8)])\n"
         "r = pnp.pnp_ransac(samples, K, p, uv, one, one.bool())\n"
         "assert bool(r.ok)\n"
+        "import tempfile\n"
+        "from orbslam2_nmi_torch import run_replay\n"
+        "from orbslam2_nmi_torch.config import (CameraConfig, NMIConfig, ORBConfig,"
+        " SystemConfig, TrackingConfig)\n"
+        "from orbslam2_nmi_torch.io import datasets, trajectory\n"
+        "from orbslam2_nmi_torch.io.synthetic import SyntheticWorld\n"
+        "from orbslam2_nmi_torch.slam import frontend_pipelined, system, tracking\n"
+        "from orbslam2_nmi_torch.solvers import two_view_init\n"
+        "from orbslam2_nmi_torch.tools import circuit_diag\n"
+        "w = SyntheticWorld.generate(seed=3, n_points=20000)\n"
+        "cfg = SystemConfig(camera=CameraConfig(fx=w.fx, fy=w.fx, cx=80.0, cy=60.0, width=160,"
+        " height=120), orb=ORBConfig(n_features=200, n_levels=3), nmi=NMIConfig(offset=2),"
+        " tracking=TrackingConfig(max_keyframes=8, max_map_points=2048, max_features=256))\n"
+        "s = system.SLAMSystem(cfg, use_nmi=False, output_dir=tempfile.mkdtemp(), device='cpu')\n"
+        "s.set_init_poses(w.pose_at(0, 40), w.pose_at(2, 40))\n"
+        "fe = frontend_pipelined.PipelinedFrontend(s, n_cand=256)\n"
+        "res = fe.run([w.render_frame(i, 40, 160, 120, device='cpu') for i in range(6)],"
+        " np.arange(6) / 10.0)\n"
+        "assert len(res) == 6 and s.tracker.state != tracking.TrackingState.NOT_INITIALIZED\n"
+        "assert circuit_diag.decision_counts(fe.records)['decisions'] <= 6\n"
+        "s.save_full_trajectory('F')\n"
+        "s.shutdown()\n"
+        "assert trajectory.ate_rmse([np.eye(4)] * 3, [np.eye(4)] * 3) == 0.0\n"
+        "uv1 = torch.rand(16, 2) * 100\n"
+        "r = two_view_init.initialize_two_view(np.tile(np.arange(4), (8, 1)),"
+        " np.tile(np.arange(8), (8, 1)), K, uv1, uv1 + 1.0, torch.ones(16, dtype=torch.bool))\n"
+        "assert r.Tcw2.shape == (4, 4)\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )

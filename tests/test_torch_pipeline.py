@@ -25,6 +25,7 @@ from torch_port_fixtures import (cuda_device, initialize_at_true_poses,  # noqa:
 
 from orbslam2_nmi_torch import config as tconfig
 from orbslam2_nmi_torch.slam import checkpoint as tck
+from orbslam2_nmi_torch.slam.frontend_pipelined import local_candidates, upload_candidates
 from orbslam2_nmi_torch.slam.fused_track import FusedTrackStep
 from orbslam2_nmi_torch.slam.local_mapping import LocalMapper
 from orbslam2_nmi_torch.slam import map_store as tms
@@ -214,8 +215,9 @@ def test_capture_beside_a_running_worker(cuda_device):
         busy = not s.pipeline.idle()
         step = FusedTrackStep(s.cfg, s.step.n_cand, cuda_device)
         with s.map.lock:
-            ids, arrays = s.candidates.candidate_arrays(np.array([0, 1, 2]), 2, s.last.Tcw)
-        args = (s.frame(10), s.carry, *s.candidates.upload(arrays))
+            ids, arrays = local_candidates(s.map, s.cfg, np.array([0, 1, 2]), 2, s.last.Tcw,
+                                           s.step.n_cand)
+        args = (s.frame(10), s.carry, *upload_candidates(arrays, cuda_device))
         g = step(*args)  # captures on its first call
         e = step.run_eager(*args)
         s.flush()

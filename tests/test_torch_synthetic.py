@@ -88,3 +88,74 @@ def test_render_frames_match_one_render():
         assert torch.equal(frames[k], one)
     assert not torch.equal(frames[0], frames[1])
 
+
+
+# --- the point world of the end-to-end tests, and the domain-gap tools -------
+
+WORLD_POSE_ATOL = 1e-7
+
+
+def test_point_world_generate_equal():
+    t, j = tsyn.SyntheticWorld.generate(seed=3), jsyn.SyntheticWorld.generate(seed=3)
+    np.testing.assert_array_equal(t.points, j.points)
+    np.testing.assert_array_equal(t.gray, j.gray)
+    assert t.fx == j.fx and t.points.dtype == np.float32
+    np.testing.assert_array_equal(t.camera_K(320, 240), j.camera_K(320, 240))
+
+
+def test_point_world_pose_at_matches_reference():
+    """Rotations within 1e-7; translations (up to 12 m, -R t in float32)
+    within 1e-7 relative, one float32 ulp (measured: 4.8e-7 m at 12 m)."""
+    t, j = tsyn.SyntheticWorld.generate(seed=3), jsyn.SyntheticWorld.generate(seed=3)
+    for i in range(0, 25, 3):
+        a, b = t.pose_at(i, 25), j.pose_at(i, 25)
+        np.testing.assert_allclose(a[:3, :3], b[:3, :3], atol=WORLD_POSE_ATOL, rtol=0)
+        np.testing.assert_allclose(a[:3, 3], b[:3, 3], atol=WORLD_POSE_ATOL,
+                                   rtol=WORLD_POSE_ATOL)
+        np.testing.assert_array_equal(a[3], b[3])
+
+
+@pytest.mark.parametrize("i", [0, 13])
+def test_point_world_render_frame_equal(i):
+    """The port's splat renders the JAX package's frames pixel for pixel at
+    the end-to-end tests' 320x240."""
+    t, j = tsyn.SyntheticWorld.generate(seed=3), jsyn.SyntheticWorld.generate(seed=3)
+    a, b = t.render_frame(i, 25, 320, 240, device="cpu"), j.render_frame(i, 25, 320, 240)
+    assert a.dtype == np.uint8 and a.shape == (240, 320)
+    np.testing.assert_array_equal(a, b)
+
+
+def test_wide_world_and_lit_mesh_equal():
+    t, j = tsyn.SyntheticMeshWorld.generate_wide(seed=1, n_grid=40), \
+        jsyn.SyntheticMeshWorld.generate_wide(seed=1, n_grid=40)
+    assert (t.fx, t.radius_x, t.radius_y, t.overlap) == (j.fx, j.radius_x, j.radius_y, j.overlap)
+    np.testing.assert_array_equal(t.mesh.texture_gray, j.mesh.texture_gray)
+    lt, lj = t.lit_mesh(), j.lit_mesh()
+    np.testing.assert_array_equal(lt.texture_gray, lj.texture_gray)
+    np.testing.assert_array_equal(lt.vertices, t.mesh.vertices)
+    assert not np.array_equal(lt.texture_gray, t.mesh.texture_gray)
+
+
+def test_photometric_gap_equal():
+    frames = np.random.default_rng(0).integers(0, 256, (3, 24, 32)).astype(np.uint8)
+    a = tsyn.apply_photometric_gap(frames, seed=1)
+    np.testing.assert_array_equal(a, jsyn.apply_photometric_gap(frames, seed=1))
+    assert a.dtype == np.uint8 and not np.array_equal(a, frames)
+    np.testing.assert_array_equal(tsyn._bilinear_resize(frames[0].astype(float), 7, 9),
+                                  jsyn._bilinear_resize(frames[0].astype(float), 7, 9))
+
+
+def test_synthetic_sequence_files(tmp_path):
+    """io/datasets.make_synthetic_sequence writes the rendered frames as .npy
+    files that the loader reads back."""
+    from orbslam2_nmi_torch.io import datasets
+
+    seq, world = datasets.make_synthetic_sequence(str(tmp_path), n_frames=2, seed=3,
+                                                  device="cpu")
+    assert len(seq) == 2 and np.allclose(seq.timestamps, [0.0, 1 / 30.0])
+    got = [img for _, _, img in seq.frames()]
+    np.testing.assert_array_equal(got[1], world.render_frame(1, 2, 320, 240, device="cpu"))
+    (tmp_path / "eth").mkdir()
+    (tmp_path / "eth" / "_times.txt").write_text("0.0\n0.1\n")
+    eth = datasets.load_eth_sequence(str(tmp_path / "eth"), start_index=20513)
+    assert [p.rsplit("/", 1)[1] for p in eth.image_paths] == ["20513.jpg", "20514.jpg"]

@@ -246,6 +246,16 @@ class JaxDraws:
         self.key, sub = jax.random.split(self.key)
         return self.draws(sub, n_rows, n_valid, n_hypotheses, size)
 
+    def two_view(self, n_rows, n_valid, n_hypotheses):
+        """The two-view init's H and F rows (`Tracker.draw_two_view`): one
+        split, then each hypothesis's 4 and 8 rows from the same key, as
+        `two_view_init.initialize_two_view` draws them."""
+        import jax
+
+        self.key, sub = jax.random.split(self.key)
+        return (self.draws(sub, n_rows, n_valid, n_hypotheses, 4),
+                self.draws(sub, n_rows, n_valid, n_hypotheses, 8))
+
 
 # The reduced loop scene: the reduced mapping scene tracked to frame 14 (key-
 # frames at 10, 12 and 14, so the vocabulary trains), with place recognition
@@ -272,3 +282,109 @@ def loop_scene(device="cpu"):
         session.track_frame(i)
     session.flush()
     return session
+
+
+# tests/test_slam_e2e.py's scene: the seed-3 point world at 320x240, 25 frames,
+# 400 features on 4 levels, NMI offset 4, keyframes every 10 frames at most.
+E2E = dict(width=320, height=240, n_frames=25, seed=3)
+
+
+def e2e_config():
+    """The port's SystemConfig of tests/test_slam_e2e.py:make_system (no NMI)."""
+    from orbslam2_nmi_torch.config import (CameraConfig, NMIConfig, ORBConfig, SystemConfig,
+                                           TrackingConfig)
+    from orbslam2_nmi_torch.io.synthetic import SyntheticWorld
+
+    K = SyntheticWorld(points=None, gray=None).camera_K(E2E["width"], E2E["height"])
+    return SystemConfig(
+        camera=CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                            cy=float(K[1, 2]), width=E2E["width"], height=E2E["height"],
+                            fps=10.0),
+        orb=ORBConfig(n_features=400, n_levels=4),
+        nmi=NMIConfig(offset=4, threshold=0.3),
+        tracking=TrackingConfig(max_frames=10, max_keyframes=64, max_map_points=8192,
+                                max_features=512))
+
+
+def e2e_frames():
+    """(port world, the 25 frames as uint8 numpy, the true poses)."""
+    from orbslam2_nmi_torch.io.synthetic import SyntheticWorld
+
+    world = SyntheticWorld.generate(seed=E2E["seed"])
+    n, w, h = E2E["n_frames"], E2E["width"], E2E["height"]
+    return (world, [world.render_frame(i, n, w, h, device="cpu") for i in range(n)],
+            [world.pose_at(i, n) for i in range(n)])
+
+
+def jax_e2e_run(frames, snapshot_after=None, output_dir=None):
+    """The JAX package's synchronous SLAMSystem (no NMI) over `frames` from
+    the true init poses of frames 0 and 4 (tests/test_slam_e2e.py). With
+    `snapshot_after` i, also returns the map's fields and a copy of the
+    tracker's state right after frame i. Returns (system, results,
+    snapshot)."""
+    import copy
+    import tempfile
+
+    from orbslam2_nmi_tpu.io.synthetic import SyntheticWorld as JWorld
+    from orbslam2_nmi_tpu.slam.system import SLAMSystem as JSystem
+
+    world = JWorld.generate(seed=E2E["seed"])
+    sysm = JSystem(jax_system_config(e2e_config()), use_nmi=False,
+                   output_dir=output_dir or tempfile.mkdtemp())
+    n = E2E["n_frames"]
+    sysm.set_init_poses(world.pose_at(0, n), world.pose_at(4, n))
+    results, snap = [], None
+    for i, img in enumerate(frames):
+        results.append(sysm.track_monocular(img, i / 10.0))
+        if i == snapshot_after:
+            tr = sysm.tracker
+            snap = dict(fields=map_fields(sysm.map), tracker={
+                k: copy.deepcopy(getattr(tr, k)) for k in TRACKER_STATE})
+    return sysm, results, snap
+
+
+TRACKER_STATE = ("state", "velocity", "last_frame", "init_frame", "ref_kf", "last_kf_frame_id",
+                 "kfs_since_last_nmi", "dist_since_nmi", "rot_since_nmi", "trajectory",
+                 "nmi_fail_streak", "nmi_due_skips", "n_resets", "only_tracking", "vo_mode",
+                 "_last_good_Tcw")
+
+
+def port_frame(f):
+    """The port's FrameData with a copy of any FrameData's fields."""
+    import copy
+    import dataclasses
+
+    from orbslam2_nmi_torch.slam.frame import FrameData
+
+    if f is None:
+        return None
+    return FrameData(**{x.name: copy.deepcopy(getattr(f, x.name))
+                        for x in dataclasses.fields(FrameData)})
+
+
+def set_tracker_state(tr, state: dict):
+    """Give a tracker of either package the snapshot `state` (copies; the
+    state enum by name, frames as the tracker's own package's FrameData)."""
+    import copy
+
+    for k, v in state.items():
+        if k == "state":
+            v = type(tr.state)[v.name]
+        elif k in ("last_frame", "init_frame"):
+            v = port_frame(v) if type(tr).__module__.startswith("orbslam2_nmi_torch") \
+                else copy.deepcopy(v)
+        else:
+            v = copy.deepcopy(v)
+        setattr(tr, k, v)
+
+
+def jax_map_from_fields(fields, jcfg):
+    """The JAX package's MapStore holding `fields` (`map_fields`' dict)."""
+    from orbslam2_nmi_tpu.slam.checkpoint import _MAP_FIELDS
+    from orbslam2_nmi_tpu.slam.map_store import MapStore
+
+    m = MapStore(jcfg)
+    for f in _MAP_FIELDS:
+        getattr(m, f)[...] = fields[f]
+    m.n_keyframes, m.n_points = fields["n_keyframes"], fields["n_points"]
+    return m
