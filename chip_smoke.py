@@ -100,10 +100,25 @@ Run from the root of a checkout. It
      slower than its mapper, as the reference's record was taken at 1.35
      frames/s, and holds the record's bars there: at least 21 NMI anchors
      (half of the reference's 42), 508 frames tracked, ATE-RMSE 0.0625 m;
- 11. prints a JSON line of the step times, one of the localizer's, one of the
+ 11. the tools (`tools/bench.py`, `replay_bench.py`, `device_budget.py`) and
+     the headless visualization (`viz/replay.py`), at 960x540: the bench
+     sweep on the reference bench's scene (71,442 faces, a 512x512 texture,
+     27 x 27; medians and spreads by CUDA events, evaluations/s, one launch
+     of each kernel, the scores within 1e-5 of an all-plain run with the
+     same argmax, B3's and the sampler's times beside their byte bounds);
+     the domain-gap replay of the 160-frame prefix of the seed-1 circuit
+     (`run_replay`: threshold 0.1, pipelined, async mapping and async NMI;
+     at least 148 tracked, unaligned ATE-RMSE at most 0.0625 m), the same
+     prefix by the synchronous system (the same bars); frames 60-159
+     profiled by `device_budget.run_windowed` ("other" under 10 % of the
+     device time, B3 and the sampler in nmi_render, B1 and B2 in nmi_score,
+     the replayed step in tracking_fused_step, the idle share); the async
+     replay's last frame drawn, its map plotted, and the debug overlays of
+     one `relocalize_strategy` named by each sweep's argmax;
+ 12. prints a JSON line of the step times, one of the localizer's, one of the
      tracking phase's, one of the mapping phase's, one of the loop phase's,
-     one of the system phase's, one JSON line listing the kernels, then the
-     final JSON line {"ok": true, ...}.
+     one of the system phase's, one of the tools phase's, one JSON line
+     listing the kernels, then the final JSON line {"ok": true, ...}.
 The grid step and the localizer's case (b) also run with TF32 turned on for
 the whole process, and must give the same scores and pose (fault C1).
 Any failed check raises, and the script exits non-zero without the final
@@ -1456,6 +1471,7 @@ def system_phase(dev, smi, check):
     from orbslam2_nmi_torch.slam.frontend_pipelined import PipelinedFrontend, local_candidates
     from orbslam2_nmi_torch.slam.map_store import MapStore
     from orbslam2_nmi_torch.slam.tracking import Tracker, TrackingState
+    from orbslam2_nmi_torch.solvers import pnp
     from orbslam2_nmi_torch.tools import circuit_diag
 
     t_phase = time.perf_counter()
@@ -1701,6 +1717,11 @@ def system_phase(dev, smi, check):
 
     # --- induced loss: 3 noise frames, then frames 48 onward ---------------------
     n_kf0 = int(m.n_keyframes)
+    with m.lock:  # the points whose EPnP hypotheses pnp.epnp_pose returns as NaN (C5)
+        pos = m.mp_pos[m.valid_point_indices()]
+    n_far = int((~(np.abs(pos) < pnp._FAR).all(-1)).sum())
+    print(f"  map points not finite or beyond {pnp._FAR:g} m before the loss: {n_far} of "
+          f"{len(pos)}")
     g = torch.Generator(device=dev).manual_seed(0)
     noise = torch.randint(0, 256, (3,) + tuple(frames.shape[1:]), generator=g, device=dev,
                           dtype=torch.uint8)
@@ -1728,7 +1749,7 @@ def system_phase(dev, smi, check):
     check(rel_err <= SYS_RELOC_ERR_M, f"the relocalized pose within {SYS_RELOC_ERR_M} m "
           f"({rel_err:.4f})")
     rec["induced_loss"] = dict(relocalizations=rel, first_ok=first_ok, err_m=rel_err,
-                               tracked_after=len(back), frames_after=hi - lo)
+                               tracked_after=len(back), frames_after=hi - lo, far_points=n_far)
 
     # --- localization-only mode over frames 100-159 ------------------------------
     system.activate_localization_mode()
@@ -1777,6 +1798,228 @@ def system_phase(dev, smi, check):
     rec["synchronous"] = {k: v for k, v in sync_run.items() if k not in ("keyframe_frames",
                                                                          "sweeps")}
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+# The tools phase: the bench sweep on tools/bench.py's scene (the reference's
+# bench.py: the 71,442-face height field, a 512x512 texture, 27 x 27 at
+# 960x540), then the domain-gap replay of tools/replay_bench.py on the
+# 160-frame prefix of the seed-1 520-frame circuit (the lit mesh and the
+# photometric gap against the flat prior, threshold 0.1, pipelined, async
+# mapping and async NMI), frames 60-159 profiled by tools/device_budget.py
+# (STEADY_STATE_r05.json's window), and the viz artifacts of that replay.
+TOOLS_FRAMES = 160
+TOOLS_WINDOW = 60
+TOOLS_MIN_TRACKED = 148  # BENCH_r05.json's control prefix tracked 152; 4 fewer, as SYS_MIN_TRACKED
+# The reference's online maximum (SYS_ATE_M), held on the async drive of the
+# prefix (the JAX package's prefix, DOMAIN_GAP_r04.json: 0.0403 m) and, as an
+# extra check, on the synchronous system's drive of the same frames (no
+# workers: each keyframe mapped and swept at its frame).
+TOOLS_ATE_M = 0.0625
+TOOLS_OTHER_SHARE = 0.10  # STEADY_STATE_r05.json: "other" 5.6 of 3,112 ms
+TOOLS_VIZ_DIR = os.path.join("build", "chip_smoke_viz")  # gitignored
+
+
+def tools_phase(dev, smi, check, cuda_ms):
+    """Phase 11: the tools and the headless visualization at 960x540 (see
+    the TOOLS_* constants). Returns its record for the JSON line."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import kernels
+    from orbslam2_nmi_torch.ops import raster
+    from orbslam2_nmi_torch.tools import bench, device_budget, replay_bench
+    from orbslam2_nmi_torch.viz import replay as viz
+
+    t_phase = time.perf_counter()
+    rec = {}
+    print("tools: the bench sweep (tools/bench.py) on the reference bench's scene")
+    inp = bench.sweep_inputs(dev)
+    b = inp.binned
+    res = bench.run_sweep(inp)
+    t = res["times"]
+    print(f"  binned: tiles {b.tiles_y}x{b.tiles_x}, capacity {b.capacity}, overflow "
+          f"{b.overflow}, texture {tuple(b.texture.shape)}")
+    ratio = res["evals_per_s"] / bench.BASELINE_EVALS_PER_S
+    print(f"  stage ms (median, min-max of {bench.REPS} calls, CUDA events): " + ", ".join(
+        f"{k} {v['median_ms']:.4f} ({v['min_ms']:.4f}-{v['max_ms']:.4f})" for k, v in t.items())
+        + f"; {res['evals_per_s']:.1f} evaluations/s ({ratio:.3f} x the 1458/s requirement); "
+        f"the 27-candidate point splat {t['splat']['median_ms']:.3f} ms  [{smi}]")
+    print(f"  launches over one sweep: {res['launches']}")
+    check(all(v == 1 for v in res["launches"].values()),
+          "each kernel launched once over the bench sweep")
+    warped = res["warped"]
+    plain = _all_plain_scores(b, inp.Tcw, inp.K, inp.offsets, bench.NEAR, warped, True)
+    d = (res["scores"] - plain).abs().max().item()
+    a_k, a_p = int(res["scores"].argmax()), int(plain.argmax())
+    print(f"  scores [27, 27]: max |kernels - all-plain| {d}, argmax {a_k} vs {a_p}")
+    check(d <= SCORE_ATOL and a_k == a_p,
+          f"bench sweep scores within {SCORE_ATOL} of the all-plain run, the same argmax")
+    poses = raster.grid_poses(inp.Tcw, inp.offsets)
+    K = inp.K
+    rargs = (b.tri_data, poses, b.capacity, float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+             float(K[1, 2]), bench.NEAR, b.tiles_x)
+    keys, uu, vv = raster.rasterize_keys(*rargs)
+    n_pix = keys.numel()
+    n_tests = _raster_tests(raster, b, poses, K, bench.NEAR)
+    b3_bound, b3_by = _bound_ms(b.tri_data.numel() * 4 + poses.numel() * 4 + 3 * n_pix * 4,
+                                n_tests * 10)
+    th, tw = b.tex_hw
+    s_bound, s_by = _bound_ms(16 * n_pix + b.texture.numel() * 4, 20 * n_pix)
+    kernel_ms = dict(
+        rasterize_keys=dict(ms=cuda_ms(lambda: raster.rasterize_keys(*rargs)),
+                            bound_ms=b3_bound, bound_by=b3_by),
+        sample_texture=dict(ms=cuda_ms(lambda: raster.sample_texture(keys, uu, vv, b.texture,
+                                                                      th, tw, 0.0)),
+                            bound_ms=s_bound, bound_by=s_by))
+    print(f"  at the bench's shapes ({n_tests:.4e} coverage tests, {n_pix} tiled pixels): B3 "
+          f"{kernel_ms['rasterize_keys']['ms']:.4f} ms (bound {b3_bound:.4f} ms by {b3_by}), "
+          f"the sampler {kernel_ms['sample_texture']['ms']:.4f} ms (bound {s_bound:.4f} ms by "
+          f"{s_by})  [{smi}]")
+    rec["sweep"] = dict(times={k: {m: v[m] for m in ("median_ms", "min_ms", "max_ms")}
+                               for k, v in t.items()},
+                        evals_per_s=res["evals_per_s"], launches=res["launches"],
+                        scores_gap=d, kernels=kernel_ms)
+    del res, keys, uu, vv, warped, plain, inp
+
+    print(f"tools: the domain-gap replay (tools/replay_bench.py), the {TOOLS_FRAMES}-frame "
+          "prefix of the seed-1 520-frame circuit, threshold 0.1, pipelined, async mapping "
+          "and async NMI")
+    t0 = time.perf_counter()
+    world, frames = replay_bench.generate_sequence(TOOLS_FRAMES, 960, 540, n_total=520,
+                                                   domain_gap=True, cache=False, device=dev)
+    torch.cuda.synchronize(dev)
+    rec["render_s"] = time.perf_counter() - t0
+    viz_dir = TOOLS_VIZ_DIR
+    os.makedirs(os.path.join(viz_dir, "nmi_debug"), exist_ok=True)
+    for f in os.listdir(os.path.join(viz_dir, "nmi_debug")):
+        os.remove(os.path.join(viz_dir, "nmi_debug", f))
+    drawn = {}
+
+    def draw(system):  # (c): the replay's artifacts, its workers drained
+        tr, loc = system.tracker, system.localizer
+        fr = tr.last_frame
+        viz.draw_frame(frames[-1].cpu().numpy(), fr.xy, fr.mp_idx >= 0,
+                       os.path.join(viz_dir, "last_frame.png"))
+        viz.plot_map_topdown(system.map, os.path.join(viz_dir, "map_topdown.png"),
+                             trajectory=system.full_trajectory())
+        sweeps = []
+        evaluate = loc.evaluate_grid
+
+        def recorded(*a, **k):
+            sweeps.append(evaluate(*a, **k))
+            return sweeps[-1]
+
+        loc.evaluate_grid, loc.debug_dir = recorded, os.path.join(viz_dir, "nmi_debug")
+        T = world.pose_at(TOOLS_FRAMES - 1, 520).copy()
+        T[0, 3] -= system.cfg.nmi.grid.synth_step[0]  # one translation step off
+        out = loc.relocalize_strategy(frames[-1].float(), T)
+        loc.debug_dir = None
+        del loc.evaluate_grid
+        drawn.update(sweeps=sweeps, outcome=out)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = replay_bench.run_replay(world, frames, n_total=520, pipelined=True, threshold=0.1,
+                                  device=dev, after=draw)
+    rec["replay_s"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rec["replay"] = out
+    print(f"  {TOOLS_FRAMES} frames rendered and degraded in {rec['render_s']:.1f} s; the replay "
+          f"{rec['replay_s']:.1f} s: tracked {out['n_tracked']}, keyframes {out['n_keyframes']}, "
+          f"map points {out['n_map_points']}, NMI anchors {out['n_nmi_anchors']}, loop closures "
+          f"{out['n_loop_closures']}; {out['fps_steady']:.2f} frames/s (p50 "
+          f"{out['fps_median']:.2f}); walls p50 {out['frame_ms_p50']:.1f}, p95 "
+          f"{out['frame_ms_p95']:.1f}, max {out['frame_ms_max']:.1f} ms; unaligned ATE-RMSE "
+          f"{out['ate_rmse']:.4f} m; launches {launches}  [{smi}]")
+    check(out["n_tracked"] >= TOOLS_MIN_TRACKED and out["ate_rmse"] <= TOOLS_ATE_M,
+          f"domain-gap prefix: at least {TOOLS_MIN_TRACKED} of {TOOLS_FRAMES} frames tracked, "
+          f"unaligned ATE-RMSE {out['ate_rmse']:.4f} <= {TOOLS_ATE_M} m")
+    check(all(v > 0 for v in launches.values()),
+          "every kernel launched on the replay's path (latches, anchors, the overlays)")
+    t0 = time.perf_counter()
+    sync = replay_bench.run_replay(world, frames, n_total=520, pipelined=True, threshold=0.1,
+                                   async_mapping=False, device=dev)
+    rec["sync_replay"] = sync
+    print(f"  the same prefix by the synchronous system ({time.perf_counter() - t0:.1f} s): "
+          f"tracked {sync['n_tracked']}, keyframes {sync['n_keyframes']}, NMI anchors "
+          f"{sync['n_nmi_anchors']}, {sync['fps_steady']:.2f} frames/s, unaligned ATE-RMSE "
+          f"{sync['ate_rmse']:.4f} m (the async drive's {out['ate_rmse']:.4f}; the JAX "
+          "package's prefix 0.0403, DOMAIN_GAP_r04.json)")
+    check(sync["n_tracked"] >= TOOLS_MIN_TRACKED and sync["ate_rmse"] <= TOOLS_ATE_M,
+          f"domain-gap prefix, synchronous system: at least {TOOLS_MIN_TRACKED} tracked, "
+          f"unaligned ATE-RMSE {sync['ate_rmse']:.4f} <= {TOOLS_ATE_M} m")
+
+    print(f"tools: the device budget of frames {TOOLS_WINDOW}-{TOOLS_FRAMES - 1} "
+          "(tools/device_budget.run_windowed, torch.profiler)")
+    t0 = time.perf_counter()
+    bud = device_budget.run_windowed(TOOLS_FRAMES, TOOLS_WINDOW, 520, domain_gap=True,
+                                     device=dev, world=world, frames=frames, warm=False)
+    rec["budget_s"] = time.perf_counter() - t0
+    total_ms = sum(bud["by_subsystem_ms"].values())
+    other = bud["by_subsystem_ms"].get("other", 0.0)
+    print(f"  by subsystem (device ms over the window): {bud['by_subsystem_ms']}; "
+          f"{bud['device_ms_per_frame']} device ms a frame over {bud['n_device_ops']} device "
+          f"operations; idle share {bud['device_idle_share']:.4f} (summed device time), "
+          f"{bud['device_idle_share_union']:.4f} (union of intervals) over the traced "
+          f"{bud['traced_wall_s']:.2f} s; {bud['wall_fps_window']:.2f} frames/s traced; walls "
+          f"p50 {bud['frame_ms_p50']:.1f}, p95 {bud['frame_ms_p95']:.1f}, max "
+          f"{bud['frame_ms_max']:.1f} ms; keyframes {bud['n_keyframes']}, anchors "
+          f"{bud['n_nmi_anchors']}; the budget took {rec['budget_s']:.1f} s  [{smi}]")
+    print(f"  top ranges (ms): {bud['top_modules_ms']}")
+    print(f"  device ms by how each launch was found: {bud['launch_found_ms']}; not found, "
+          f"by stream: {bud['unattributed_ms_by_stream']}")
+    print(f"  the hand-written kernels by range (ms): {bud['cuda_kernels_ms']}")
+    rec["budget"] = {k: v for k, v in bud.items() if k != "modules_ms"}
+    check(other < TOOLS_OTHER_SHARE * total_ms,
+          f"'other' {other} ms under {TOOLS_OTHER_SHARE:.0%} of the traced {total_ms:.1f} ms")
+    where = {k: {device_budget.classify(r) for r in v} for k, v in bud["cuda_kernels_ms"].items()}
+    print(f"  the hand-written kernels' buckets: {where}")
+    check(where.get("rasterize_keys_kernel") == {"nmi_render"}
+          and where.get("sample_texture_kernel") == {"nmi_render"}
+          and where.get("joint_entropy_kernel") == {"nmi_score"}
+          and where.get("marginal_entropy_kernel") == {"nmi_score"},
+          "B3 and the sampler land in nmi_render, B1 and B2 in nmi_score")
+    fused = bud["modules_ms"].get("fused_step", 0.0)
+    check(bud["by_subsystem_ms"].get("tracking_fused_step", 0.0) > 0 and fused > 0,
+          f"the replayed step lands in tracking_fused_step ({fused:.1f} ms in 'fused_step')")
+    del frames
+
+    print("tools: the replay's viz artifacts (viz/replay.py, the localizer's debug_dir)")
+
+    def image(name):  # PNG where PIL is installed, else the .npy beside the name
+        path = os.path.join(viz_dir, name)
+        if os.path.exists(path + ".npy"):
+            return np.load(path + ".npy")
+        from PIL import Image
+
+        return np.asarray(Image.open(path))
+
+    img = image("last_frame.png")
+    check(img.shape == (540, 960, 3) and img.dtype == np.uint8,
+          f"draw_frame of the last frame: {img.shape} {img.dtype}")
+    img = image("map_topdown.png")
+    check(img.shape == (900, 900, 3) and bool(img.any()),
+          f"plot_map_topdown of the replay's map: {img.shape}, {int((img > 0).any(-1).sum())} "
+          "pixels drawn")
+    names = sorted(f.removesuffix(".npy") for f in os.listdir(os.path.join(viz_dir, "nmi_debug")))
+    best = [n for n in names if "_best_" in n]
+    sweeps = drawn["sweeps"]
+    cells = [tuple(int(x) for x in re.search(r"_s(\d+)_r(\d+)_", n).groups()) for n in best]
+    argmax = [tuple(int(x) for x in np.unravel_index(np.argmax(s), s.shape)) for s in sweeps]
+    print(f"  {len(names)} overlays for {len(sweeps)} sweeps of one relocalize_strategy "
+          f"(relocalized {drawn['outcome'].relocalized}, NMI {drawn['outcome'].nmi:.4f}): "
+          f"best cells {cells}, the sweeps' argmax {argmax}")
+    check(len(names) == 2 * len(sweeps) > 0 and cells == argmax,
+          "the debug overlays name each sweep's argmax (s, r)")
+    for n in names:
+        img = image(os.path.join("nmi_debug", n))
+        check(img.shape == (540, 960, 3), f"overlay {n}: {img.shape}")
+    rec["viz"] = dict(dir=viz_dir, overlays=names)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase took {rec['phase_s']:.1f} s")
     return rec
 
 
@@ -2071,6 +2314,7 @@ def main() -> int:
     finally:
         session.shutdown()
     system_record = system_phase(dev, smi, check)
+    tools_record = tools_phase(dev, smi, check, cuda_ms)
     rc = track_record["raster_check"]
     rows["rasterize_keys"]["max_abs_err"] = max(rows["rasterize_keys"]["max_abs_err"],
                                                 rc["raster_err"])
@@ -2091,6 +2335,7 @@ def main() -> int:
     print(json.dumps({"mapping": map_record, "card": smi}))
     print(json.dumps({"loop": loop_record, "card": smi}))
     print(json.dumps({"system": system_record, "card": smi}, default=float))
+    print(json.dumps({"tools": tools_record, "card": smi}, default=float))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -378,25 +378,30 @@ INIT_FRAMES = (0, 8)  # the replay's init pair: frame 0 and frame NMI.Offset
 
 
 def mapping_config(world: SyntheticMeshWorld, height: int, width: int, n_features: int = 2000,
-                   max_keyframes: int = 512) -> SystemConfig:
+                   max_keyframes: int = 512, n_levels: int = 8, threshold: float = 0.45,
+                   max_frames: int = 30, vocabulary_path: str = "") -> SystemConfig:
     """The JAX package's full-circuit replay configuration
     (`tools/replay_bench.py:113-140`, `:182-184`): the world's camera at
-    `width` x `height`, 30 fps; ORB with `n_features` on 8 levels; NMI
-    offset 8, accept threshold 0.45, near/far from the world, 4 iterations,
-    a relocalization every 2nd keyframe, half-resolution coarse sweeps;
-    `max_keyframes` keyframes (512 in the replay) and 256 map points each."""
+    `width` x `height`, 30 fps; ORB with `n_features` on `n_levels` levels
+    (8); NMI offset 8, accept threshold `threshold` (0.45; 0.1 on the
+    domain-gap imagery), near/far from the world, 4 iterations, a
+    relocalization every 2nd keyframe, half-resolution coarse sweeps;
+    `max_keyframes` keyframes (512 in the replay) and 256 map points each,
+    a keyframe at least every `max_frames` frames; a vocabulary file, if
+    given, loaded at the start."""
     K = world.camera_K(width, height)
     near, far = world.near_far()
     return SystemConfig(
         camera=CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
                             cy=float(K[1, 2]), width=width, height=height, fps=30.0),
-        orb=ORBConfig(n_features=n_features, n_levels=8),
-        nmi=NMIConfig(offset=INIT_FRAMES[1] - INIT_FRAMES[0], threshold=0.45, render_near=near,
-                      render_far=far, grid=NMIGridConfig(), max_iteration_count=4,
-                      reloc_frequency=2, coarse_scale=2),
-        tracking=TrackingConfig(max_frames=30, max_keyframes=max_keyframes,
+        orb=ORBConfig(n_features=n_features, n_levels=n_levels),
+        nmi=NMIConfig(offset=INIT_FRAMES[1] - INIT_FRAMES[0], threshold=threshold,
+                      render_near=near, render_far=far, grid=NMIGridConfig(),
+                      max_iteration_count=4, reloc_frequency=2, coarse_scale=2),
+        tracking=TrackingConfig(max_frames=max_frames, max_keyframes=max_keyframes,
                                 max_map_points=max_keyframes * 256,
                                 max_features=max(2048, n_features + 48)),
+        vocabulary_path=vocabulary_path,
     )
 
 
@@ -744,18 +749,19 @@ CIRCUIT_SEED = 1  # the JAX package's records come from the seed-1 world
 
 def circuit_system(device: str | torch.device = "cuda", asynchronous: bool = True):
     """(system, world): `circuit_entry`'s system, without the imagery: a
-    fresh `SLAMSystem` on the seed-1 world's circuit configuration, its
-    workers started and its init poses set. With `asynchronous` off, local
+    fresh `SLAMSystem` on the seed-1 world's circuit configuration
+    (`tools/replay_bench.build_system` at its defaults), its workers started
+    and its init poses set. With `asynchronous` off, local
     mapping and the keyframes' NMI sweeps run synchronously, at the keyframe
     that asks for them."""
+    from orbslam2_nmi_torch.tools.replay_bench import build_system
+
     device = kernels.resolve_device(device, "circuit_system()")
     n = CIRCUIT_FRAMES
     world = SyntheticMeshWorld.generate(seed=CIRCUIT_SEED)
-    cfg = mapping_config(world, 540, 960)
-    system = SLAMSystem(cfg, nmi_mesh=world.mesh, async_mapping=asynchronous,
-                        async_nmi=asynchronous, device=device,
-                        output_dir=tempfile.mkdtemp(prefix="circuit_"))
-    system.set_init_poses(world.pose_at(0, n), world.pose_at(cfg.nmi.offset, n))
+    system = build_system(world, 960, 540, async_mapping=asynchronous, async_nmi=asynchronous,
+                          output_dir=tempfile.mkdtemp(prefix="circuit_"), device=device)
+    system.set_init_poses(world.pose_at(0, n), world.pose_at(system.cfg.nmi.offset, n))
     return system, world
 
 

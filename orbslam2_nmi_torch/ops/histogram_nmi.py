@@ -32,6 +32,7 @@ import math
 import torch
 
 from orbslam2_nmi_torch import kernels
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 N_BINS = 256
 JOINT_MAX_PIXELS = 2**25  # kernel B1's limit (csrc/histogram_nmi.cu, kSpillSlots * kSpill)
@@ -173,6 +174,7 @@ def _check_bins(*bins: torch.Tensor) -> None:
         raise ValueError("pixel count must stay below 2**31 (int32 histogram counts)")
 
 
+@labelled("joint_entropy_grid")
 def joint_entropy_grid(synth_bins: torch.Tensor, warp_bins: torch.Tensor, n_valid: int,
                        mask_zero: bool = False) -> torch.Tensor:
     """All-pairs joint entropies [S, R] (or [3, S, R] with `mask_zero`) of
@@ -209,6 +211,7 @@ def _launch_marginal(a: torch.Tensor, b: torch.Tensor | None, n_valid: int) -> t
     return out
 
 
+@labelled("marginal_entropy_grid")
 def marginal_entropy_grid(bins: torch.Tensor, n_valid: int) -> torch.Tensor:
     """Per-image entropies [N] of uint8 bins [N, P]: kernel B2 on CUDA, the
     plain version on CPU."""
@@ -218,6 +221,7 @@ def marginal_entropy_grid(bins: torch.Tensor, n_valid: int) -> torch.Tensor:
     return _launch_marginal(bins, None, n_valid)
 
 
+@labelled("marginal_entropy_sets")
 def marginal_entropy_sets(synth_bins: torch.Tensor, warp_bins: torch.Tensor,
                           n_valid: int) -> torch.Tensor:
     """Entropies [S+R] of uint8 bins synth_bins [S, P], then warp_bins [R, P]:
@@ -237,6 +241,7 @@ def pack_bins(img: torch.Tensor) -> torch.Tensor:
     return torch.clamp(flat, 0, N_BINS - 1).to(torch.uint8)
 
 
+@labelled("entropy.nmi_scores")
 def nmi_scores(
     synth: torch.Tensor,  # [S, H, W] float or uint8 images in [0, 255]
     warped: torch.Tensor,  # [R, H, W]

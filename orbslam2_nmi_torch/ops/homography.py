@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch.geometry import se3
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 MAX_TWO_PASS_SHIFT = 64  # px: the largest shift bound the two-pass warp takes
 
@@ -171,6 +172,7 @@ def shift_bounds_for_angles(
     return int(np.ceil(vert)), int(np.ceil(horiz))
 
 
+@labelled("warp_homographies")
 def warp_homographies(img: torch.Tensor, Hs: torch.Tensor, bound: tuple[int, int]) -> torch.Tensor:
     """Warp `img` [H, W] by the homographies Hs [R, 3, 3] whose shifts are
     bounded by `bound` (from `shift_bounds_for_angles`): [R, H, W] float32.
@@ -181,6 +183,7 @@ def warp_homographies(img: torch.Tensor, Hs: torch.Tensor, bound: tuple[int, int
     return warp_bilinear(img, Hs)
 
 
+@labelled("warp_rotation_grid")
 def warp_rotation_grid(img: torch.Tensor, K, angles) -> torch.Tensor:
     """Warp `img` [H, W] by every rotation hypothesis: [R, H, W] float32.
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 TH_LOW = 50
 TH_HIGH = 100
@@ -81,6 +82,7 @@ def rotation_consistency_mask(
     return valid & keep_bin[bins.long()]
 
 
+@labelled("match_descriptors")
 def match_descriptors(
     desc_a: torch.Tensor,
     valid_a: torch.Tensor,
@@ -176,6 +178,7 @@ def match_epipolar(
                              max_dist=TH_LOW, apply_ratio=False)
 
 
+@labelled("match_epipolar_batch")
 def match_epipolar_batch(
     desc1: torch.Tensor,  # [F1, 8] the new keyframe's descriptors (shared)
     free1: torch.Tensor,  # [N, F1] per-pair free mask (bindings change as pairs land)
@@ -195,6 +198,7 @@ def match_epipolar_batch(
                           xy1.expand(n, *xy1.shape), xy2_b, F12_b, sigma2_2_b)[0]
 
 
+@labelled("fuse_match_batch")
 def fuse_match_batch(
     desc_src: torch.Tensor,  # [P, NB, 8] source map-point descriptors (padded)
     valid_src: torch.Tensor,  # [P, NB]

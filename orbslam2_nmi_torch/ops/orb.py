@@ -61,6 +61,7 @@ import torch
 from orbslam2_nmi_torch.config import ORBConfig
 from orbslam2_nmi_torch.ops import fast as fast_ops
 from orbslam2_nmi_torch.ops import pyramid as pyr
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 _PATTERN_PATH = os.path.join(os.path.dirname(__file__), "orb_pattern.npy")
 
@@ -237,6 +238,7 @@ def _distribution_cell(h: int, w: int, n_target: int) -> int:
     return int(np.clip(c, 8, 64))
 
 
+@labelled("extract_orb")
 def extract_orb(image_u8: torch.Tensor, cfg: ORBConfig) -> Features:
     """Full ORB extraction on a [H, W] uint8 image -> Features of size
     cfg.n_features (fixed), coordinates in level-0 pixels, on the image's

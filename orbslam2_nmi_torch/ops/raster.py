@@ -37,6 +37,7 @@ import torch
 
 from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.io.model_loader import MeshModel
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 TILE_H = 16
 TILE_W = 128
@@ -102,6 +103,7 @@ def _downsample_texture(tex: np.ndarray, max_dim: int) -> np.ndarray:
     return np.pad(t, ((0, ph), (0, pw)), mode="edge"), shape
 
 
+@labelled("render.bin_mesh")
 def bin_mesh(
     mesh: MeshModel,
     Tcw_center: np.ndarray,
@@ -365,6 +367,7 @@ def rasterize_keys_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_
             torch.stack(vs).reshape(shape))
 
 
+@labelled("rasterize_keys")
 def rasterize_keys(tri_data: torch.Tensor, poses: torch.Tensor, capacity: int,
                    fx: float, fy: float, cx: float, cy: float, near: float, tiles_x: int):
     """(keys int32, u f32, v f32), each [S, n_tiles, TILE_H, TILE_W]: packed
@@ -421,6 +424,7 @@ def sample_texture_plain(keys, uu, vv, texture, th, tw, background):
     return torch.where(hit, gray, torch.tensor(background, dtype=torch.float32, device=gray.device))
 
 
+@labelled("sample_texture")
 def sample_texture(keys: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
                    texture: torch.Tensor, th: int, tw: int, background: float) -> torch.Tensor:
     """Bilinear gray at each hit pixel's (u, 1-v), `background` elsewhere.
@@ -461,6 +465,7 @@ def grid_poses(Tcw: torch.Tensor, offsets_cam: torch.Tensor) -> torch.Tensor:
     return torch.cat([Tcw[:3, :3].reshape(1, 9).expand(S, 9), t_all], dim=1).contiguous()
 
 
+@labelled("render_mesh_grid")
 def render_mesh_grid(
     binned: BinnedMesh,
     Tcw: torch.Tensor,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel, PointCloudModel
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 _BIG = 2**30  # empty pixel (and masked point) key
 _DEPTH_LEVELS = 2**22
@@ -144,6 +145,7 @@ def _splat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, gray: torch.Tensor
                        torch.tensor(background, dtype=torch.float32, device=dev))
 
 
+@labelled("render_pointcloud")
 def render_pointcloud(
     model: RenderModel,
     Tcw: torch.Tensor,
@@ -161,6 +163,7 @@ def render_pointcloud(
     return _splat(*pc, model.gray, K, height, width, near, far, point_size, background)[0]
 
 
+@labelled("render_translation_grid")
 def render_translation_grid(
     model: RenderModel,
     Tcw: torch.Tensor,

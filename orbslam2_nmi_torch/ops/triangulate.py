@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from orbslam2_nmi_torch.geometry import se3
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 
 class TriangulationResult(NamedTuple):
@@ -112,6 +113,7 @@ def triangulate_and_gate(
     return TriangulationResult(points_w=pts_w, valid=ok, parallax_cos=cos_par)
 
 
+@labelled("triangulate_and_gate_batch")
 def triangulate_and_gate_batch(
     K: torch.Tensor,
     Tcw1: torch.Tensor,  # [4, 4] the new keyframe (shared)

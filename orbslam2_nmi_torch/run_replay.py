@@ -12,10 +12,14 @@ Usage:
   python -m orbslam2_nmi_torch.run_replay --synthetic 25 --device cpu
 
 It runs on CUDA unless `--device cpu`. `--profile DIR` records a
-`torch.profiler` trace (Chrome JSON) of the replay into DIR. The NMI overlay
-images (`--debug-images`) and the frame and map drawings (`--viz`) come
-with the visualization module, which this package does not have yet: both
-flags stop with an error.
+`torch.profiler` trace (Chrome JSON) of the replay into DIR.
+`--debug-images` saves the NMI localizer's best and middle overlays of every
+grid evaluation into OUTPUT/nmi_debug/ (the reference's orb_prop_log
+imagery, Tracking.cc:1911-1948); `--viz N` draws the tracked keypoints of
+every Nth frame (OUTPUT/frame_<id>.png) and a top-down map with the
+trajectory at exit (OUTPUT/map_topdown.png), the headless stand-in for the
+reference's Viewer (System.cc:126). Images are PNG files where PIL is
+installed, else `.npy` arrays (`viz/replay.py`).
 """
 
 from __future__ import annotations
@@ -26,9 +30,6 @@ import sys
 import time
 
 import numpy as np
-
-NO_VIZ = ("needs the visualization module (viz/ and the NMI overlays), which "
-          "orbslam2_nmi_torch does not have yet")
 
 
 def main(argv=None):
@@ -52,17 +53,14 @@ def main(argv=None):
                          "reference's thread layout); default is the deterministic "
                          "synchronous interleave")
     ap.add_argument("--debug-images", action="store_true",
-                    help="save NMI overlay images per iteration (not available yet)")
+                    help="save NMI best/middle overlay images per grid evaluation (the "
+                         "reference's orb_prop_log imagery, Tracking.cc:1911-1948)")
     ap.add_argument("--viz", type=int, default=0, metavar="N",
-                    help="save a frame overlay every N frames and a top-down map at exit "
-                         "(not available yet)")
+                    help="save a FrameDrawer overlay every N frames and a MapDrawer top-down "
+                         "map at exit (headless Viewer equivalent, System.cc:126)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="record a torch.profiler trace of the replay into DIR")
     args = ap.parse_args(argv)
-    if args.debug_images:
-        ap.error(f"--debug-images {NO_VIZ}")
-    if args.viz:
-        ap.error(f"--viz {NO_VIZ}")
 
     import torch
 
@@ -70,6 +68,7 @@ def main(argv=None):
     from orbslam2_nmi_torch.io.trajectory import ate_rmse
     from orbslam2_nmi_torch.slam.system import SLAMSystem
     from orbslam2_nmi_torch.slam.tracking import TrackingState
+    from orbslam2_nmi_torch.viz import replay as viz
 
     device = args.device
     if args.synthetic:
@@ -117,6 +116,11 @@ def main(argv=None):
         frames = ((i, t, img) for i, t, img in seq.frames())
         gt = None
 
+    if args.debug_images and system.localizer is not None:
+        dbg = os.path.join(args.output, "nmi_debug")
+        os.makedirs(dbg, exist_ok=True)
+        system.localizer.debug_dir = dbg
+
     prof = None
     if args.profile:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -138,6 +142,11 @@ def main(argv=None):
         t_last = t
         res = system.track_monocular(img, t, frame_id=i)
         n_total += 1
+        if args.viz and n_total % args.viz == 0:
+            fr = system.tracker.last_frame
+            if fr is not None:
+                viz.draw_frame(np.asarray(img), fr.xy, fr.mp_idx >= 0,
+                               os.path.join(args.output, f"frame_{i:06d}.png"))
         if res.state == TrackingState.OK and res.Tcw is not None:
             n_ok += 1
             if gt is not None:
@@ -154,6 +163,9 @@ def main(argv=None):
     system.save_full_trajectory("FullTrajectory")
     system.save_keyframe_trajectory_tum("KeyFrameTrajectory.txt")
     system.print_map_points("MapPoints.xyz")
+    if args.viz:
+        viz.plot_map_topdown(system.map, os.path.join(args.output, "map_topdown.png"),
+                             trajectory=system.full_trajectory())
     system.shutdown()
     errors = system.errors()
     if errors:

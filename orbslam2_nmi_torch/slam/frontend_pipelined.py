@@ -43,6 +43,7 @@ from orbslam2_nmi_torch.slam import fused_track
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.slam.tracking import TrackingState, TrackResult
 from orbslam2_nmi_torch.utils.readback import HostCopy
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 FRUSTUM_MARGIN = 64.0  # px, the candidate pre-filter's margin
 
@@ -101,6 +102,7 @@ def local_candidates(m, cfg, kfs: np.ndarray, ref_kf: int, Tcw_last, n_cand: int
     return ids, (pts, desc, min_d, max_d, normal, valid)
 
 
+@labelled("fused_step.upload")
 def upload_candidates(arrays, device: torch.device):
     """Candidate arrays as tensors on `device`. On CUDA they go through pinned
     memory with non-blocking copies, so the upload does not wait for the

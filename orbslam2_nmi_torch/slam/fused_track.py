@@ -52,6 +52,7 @@ from orbslam2_nmi_torch.ops import matching
 from orbslam2_nmi_torch.ops.orb import Features, extract_orb
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.solvers import pose_gn
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 
 class TrackCarry(NamedTuple):
@@ -250,6 +251,7 @@ class FusedTrackStep:
         ])
         return StepOutputs(carry=new_carry, packed=packed)
 
+    @labelled("fused_step")
     def run_eager(self, gray_u8, carry: TrackCarry, cand_pts, cand_desc, cand_min_d,
                   cand_max_d, cand_normal, cand_valid) -> StepOutputs:
         feats = self.extract(gray_u8)
@@ -300,6 +302,7 @@ class FusedTrackStep:
         return StepOutputs(carry=TrackCarry(*(t.clone() for t in out.carry)),
                            packed=out.packed.clone())
 
+    @labelled("fused_step")
     def __call__(self, gray_u8, carry: TrackCarry, cand_pts, cand_desc, cand_min_d,
                  cand_max_d, cand_normal, cand_valid) -> StepOutputs:
         args = (gray_u8, carry, cand_pts, cand_desc, cand_min_d, cand_max_d, cand_normal,

@@ -33,8 +33,6 @@ Where it differs from the JAX localizer, on purpose:
     downscale of every sweep; `cfg.coarse_scale` still runs the coarse
     sweeps at reduced resolution) and the `search_scale` attribute (the
     widening is passed per call, as every caller does).
-  * **No debug overlays.** The JAX `debug_dir` / `_save_debug_overlays`
-    come with the port of `viz/`.
 
 Sign conventions: translation candidates move the camera center along its own
 axes, offset_cam = (i - (n-1)/2) * step per axis (x right, y down, z forward);
@@ -56,6 +54,8 @@ from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
 from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
+from orbslam2_nmi_torch.utils.profiling import labelled
+from orbslam2_nmi_torch.utils.readback import to_host
 
 
 @dataclass
@@ -145,6 +145,11 @@ class NMILocalizer:
         self.model = (None if model is None
                       else render.RenderModel(*(t.to(self.device) for t in model)))
         self.log = log_fn or (lambda s: None)
+        # when set, relocalize_once saves the best and the middle cell's
+        # overlay images here (the reference's orb_prop_log imagery,
+        # Tracking.cc:1911-1948)
+        self.debug_dir: Optional[str] = None
+        self._debug_seq = 0
         self.height = camera.height
         self.width = camera.width
         self.K = camera.K  # host float32
@@ -173,6 +178,7 @@ class NMILocalizer:
     # The stages of one `evaluate_grid`, callable alone so that a grid can be
     # timed stage by stage or re-scored against other versions of its kernels.
 
+    @labelled("render.prepare_sweep")
     def prepare_sweep(
         self, frame_gray: torch.Tensor, Tcw: np.ndarray, kernel: sk.SearchKernel,
         scale: int = 1,
@@ -238,7 +244,47 @@ class NMILocalizer:
         scores = self.evaluate_grid(frame_gray, Tcw, kernel, scale=scale)
         s_flat, r_flat = np.unravel_index(np.argmax(scores), scores.shape)
         kernel = kernel.with_best_from_flat(int(s_flat), int(r_flat), float(scores[s_flat, r_flat]))
+        if self.debug_dir:
+            self._save_debug_overlays(frame_gray, Tcw, kernel, scores, int(s_flat), int(r_flat))
         return self._apply_best_cell(Tcw, kernel), kernel
+
+    def _save_debug_overlays(self, frame_gray, Tcw, kernel, scores, s_best, r_best):
+        """The best and the middle cell's overlays at full resolution, the
+        grid cell and score in the file name (Tracking.cc:1911-1948: red =
+        camera, green = render). The render is one candidate through kernel
+        B3 and the sampler for a mesh (binned at `Tcw`), the splat for a
+        point model."""
+        import os
+
+        from orbslam2_nmi_torch.viz.replay import save_nmi_debug_overlay
+
+        offsets = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
+                                                  device=self.device)
+        angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
+                                                 device="cpu").numpy()
+        frame = torch.as_tensor(frame_gray, dtype=torch.float32, device=self.device)
+        T = torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device)
+        near, far = self.cfg.render_near, self.cfg.render_far
+        s_mid, r_mid = offsets.shape[0] // 2, angles.shape[0] // 2
+        binned = None if self.mesh is None else raster.bin_mesh(
+            self.mesh, np.asarray(Tcw), self.K, self.height, self.width, near, far,
+            device=self.device)
+        point_size = max(1, int(round(self.cfg.render_point_size)))
+        for tag, s_idx, r_idx in (("best", s_best, r_best), ("middle", s_mid, r_mid)):
+            if binned is not None:
+                synth = raster.render_mesh_grid(binned, T, self.K, offsets[s_idx:s_idx + 1],
+                                                near, far)[0]
+            else:
+                T_s = T.clone()
+                T_s[:3, 3] -= offsets[s_idx]
+                synth = render.render_pointcloud(self.model, T_s, self.K, self.height,
+                                                 self.width, near, far, point_size=point_size)
+            warped = homography.warp_rotation_grid(frame, self.K, angles[r_idx:r_idx + 1])[0]
+            name = (f"{self._debug_seq:04d}_{tag}_s{s_idx}_r{r_idx}"
+                    f"_nmi{float(scores[s_idx, r_idx]):.4f}.png")
+            save_nmi_debug_overlay(to_host(warped), to_host(synth),
+                                   os.path.join(self.debug_dir, name))
+        self._debug_seq += 1
 
     def _apply_best_cell(self, Tcw: np.ndarray, kernel: sk.SearchKernel) -> np.ndarray:
         """CalculateNMIRelocalization (Tracking.cc:2374-2419): compose the best

@@ -34,6 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from orbslam2_nmi_torch.utils.profiling import labelled
 from orbslam2_nmi_torch.utils.readback import to_host
 
 _POPCNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
@@ -309,6 +310,7 @@ class Vocabulary:
             self.__dict__["_tree"] = tree
         return tree
 
+    @labelled("vocab_quantize")
     def quantize(self, desc: np.ndarray, valid: np.ndarray | None = None) -> np.ndarray:
         """[N, 8] uint32 -> [N] word ids (-1 for invalid), by the descent on
         `device`."""

@@ -58,6 +58,7 @@ import torch
 
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.utils.readback import to_host
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 CHI2_MONO = 5.991
 # sqrt in float32, as the reference takes it (jnp.sqrt of a float32 constant)
@@ -288,6 +289,7 @@ def _robust_total(chi2, active, z):
     return total + n_degen.to(torch.float32) * _DEGENERATE_COST
 
 
+@labelled("bundle_adjust")
 def bundle_adjust(prob: BAProblem, iters1: int = 5, iters2: int = 10) -> BAResult:
     """Two-phase BA mirroring Optimizer::LocalBundleAdjustment: `iters1`
     robust iterations, chi2 gating of outlier observations, then `iters2`

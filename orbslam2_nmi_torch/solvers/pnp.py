@@ -28,6 +28,13 @@ Where the port differs, or is likely to trip:
   On CUDA `lstsq` solves by QR only (`gels`), exact for the full-rank 6x3 and
   6x5 systems; a rank-deficient sample gives another garbage hypothesis
   than on the CPU, which loses the vote either way.
+* A hypothesis that samples a point which is not finite, or far enough to
+  overflow the float32 moments (a map point its BA left unconstrained),
+  returns a NaN pose and so counts no inlier, as in the JAX package, whose
+  linear algebra propagates the NaN; torch's batched solvers raise on such
+  input (CUDA's `eigh` stopped a relocalization on the card, ROADMAP C5), so
+  the hypothesis is solved with the point at the origin and its pose set to
+  NaN.
 * Precision: the 12x12 normal matrix M^T M is summed over the points in
   float64 and rounded (a float32 matmul would follow the TF32 flags); the
   small products are elementwise float32 (`se3.mm`, `se3.mv`); 3x3
@@ -44,6 +51,7 @@ import torch
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.solvers import pose_gn
 from orbslam2_nmi_torch.solvers.sim3 import _intrinsics
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 
 class PnPResult(NamedTuple):
@@ -63,6 +71,9 @@ def _gram64(a: torch.Tensor) -> torch.Tensor:
     """a^T a over the last two axes, summed in float64 and rounded."""
     a = a.double()
     return (a.transpose(-1, -2) @ a).float()
+
+
+_FAR = 1e15  # m; a coordinate's square stays far inside float32's range
 
 
 def _flip_last(R_u: torch.Tensor, Vt: torch.Tensor, det: torch.Tensor) -> torch.Tensor:
@@ -146,6 +157,9 @@ def epnp_pose(K, pts_w, uv, weights):
     w = weights
     dev = pts_w.device
     wsum = torch.clamp(torch.sum(w, -1), min=1e-9)
+    usable = (pts_w.abs() < _FAR).all(-1)  # finite and far from overflow
+    bad = ((w > 0) & ~usable).any(-1)  # hypotheses returned as NaN
+    pts_w = torch.where(usable[:, None], pts_w, 0.0)
 
     # ---- control points: centroid + PCA axes
     c0 = torch.sum(pts_w * w[..., None], -2) / wsum[..., None]
@@ -244,7 +258,8 @@ def epnp_pose(K, pts_w, uv, weights):
     cand = torch.stack([pose_from_betas(gn_refine(b)) for b in (betas_c1, betas_c2, betas_c3)])
     errs = torch.stack([sample_err(T) for T in cand])  # [3, ...]
     best = torch.argmin(errs, dim=0)  # the first of equals, as jnp.argmin
-    return torch.gather(cand, 0, best[None, ..., None, None].expand(1, *cand.shape[1:]))[0]
+    T = torch.gather(cand, 0, best[None, ..., None, None].expand(1, *cand.shape[1:]))[0]
+    return torch.where(bad[..., None, None], float("nan"), T)
 
 
 def _ransac_core(samples, K, pts_w, uv, inv_sigma2, valid, solver="epnp"):
@@ -263,6 +278,7 @@ def _ransac_core(samples, K, pts_w, uv, inv_sigma2, valid, solver="epnp"):
     return T, inl, counts[best]
 
 
+@labelled("pnp_ransac")
 def pnp_ransac(
     samples: torch.Tensor,  # [H, 4] (EPnP) or [H, 6] (DLT) row indices
     K,

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch.geometry import se3
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 CHI2_MONO = 5.991
 # sqrt in float32, as the reference takes it (jnp.sqrt of a float32 constant)
@@ -75,6 +76,7 @@ def _reproj_residuals_jac(Tcw, pts_w, uv, fx, fy, cx, cy):
     return e, se3.mm(dproj, dpc), z
 
 
+@labelled("pose_optimization")
 def pose_optimization_k(
     K,
     Tcw0: torch.Tensor,

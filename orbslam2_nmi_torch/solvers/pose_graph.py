@@ -46,6 +46,7 @@ import torch
 
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.utils.readback import to_host
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 
 class PoseGraphProblem(NamedTuple):
@@ -166,6 +167,7 @@ def solve_and_update(Scw, H, b, free, lam):
     return torch.where(free[:, None, None], Scw_new, Scw)
 
 
+@labelled("pose_graph")
 def optimize_pose_graph(prob: PoseGraphProblem, iters: int = 20,
                         lam: float = 1e-16) -> torch.Tensor:
     """Gauss-Newton over all sim3 vertices. Returns optimized Scw [V, 4, 4]."""

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch.geometry import se3
+from orbslam2_nmi_torch.utils.profiling import labelled
 
 CHI2_INLIER = 9.21  # chi2(0.99, 2 dof), Sim3Solver::CheckInliers
 CHI2_SIM3 = 10.0  # Optimizer.cc:1102 th2 (both edge directions)
@@ -101,6 +102,7 @@ def _project(K, p: torch.Tensor):
     return torch.stack([fx * p[..., 0] / z + cx, fy * p[..., 1] / z + cy], -1), p[..., 2]
 
 
+@labelled("sim3_ransac")
 def sim3_ransac(
     samples: torch.Tensor,  # [H, 3] row indices of each hypothesis's sample
     K,
@@ -156,6 +158,7 @@ class Sim3OptResult(NamedTuple):
     n_inliers: torch.Tensor
 
 
+@labelled("optimize_sim3")
 def optimize_sim3(
     K,
     S12_0: torch.Tensor,  # [4, 4] initial sim3 (e.g. the RANSAC's)

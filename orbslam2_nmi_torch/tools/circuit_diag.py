@@ -1,7 +1,7 @@
 """Per-frame diagnostic drive of the 520-frame circuit: keyframe decisions.
 
     python3 -m orbslam2_nmi_torch.tools.circuit_diag [--mapper async|idle|drained|sync ...]
-        [--out DIR]
+        [--prefix N] [--repeat R] [--out DIR]
 
 From the root of a checkout, one GPU. It builds `entry.circuit_entry()` (the
 seed-1 circuit at 960x540, async mapping and async NMI) and drives it through
@@ -24,7 +24,10 @@ decisions counted by cause: frames where c2 held, those of them refused
 because the mapper was busy, keyframes made by c2 and by the 30-frame
 cadence alone; the map points' observation counts; and each keyframe's NMI
 sweep with the camera-centre error of the keyframe's pose before the sweep
-and of the pose the sweep found. Every time is printed with the card's
+and of the pose the sweep found, and the frame the tracker had reached when
+it landed; and the anchors that landed while a local BA which held their
+keyframe free was solving (`landed_in_solve`: the BA's write-back finds the
+keyframe anchored). Every time is printed with the card's
 `nvidia-smi` line. It refuses to run without CUDA.
 """
 
@@ -40,10 +43,11 @@ import time
 import numpy as np
 import torch
 
-from orbslam2_nmi_torch.entry import circuit_entry, circuit_system
+from orbslam2_nmi_torch.entry import CIRCUIT_FRAMES, circuit_entry, circuit_system
 from orbslam2_nmi_torch.io.trajectory import ate_rmse, recompose_trajectory
 from orbslam2_nmi_torch.slam.frontend_pipelined import PipelinedFrontend
 from orbslam2_nmi_torch.slam.tracking import TrackingState
+from orbslam2_nmi_torch.tools import replay_bench
 
 CHUNK = 40  # frames a PipelinedFrontend.run call
 
@@ -98,6 +102,8 @@ def record_sweeps(system, poses) -> list:
             with system.map.lock:
                 before = system.map.kf_Tcw[k].copy()
             row(frame_id, before, out.Tcw, out.relocalized)
+            if sweeps and sweeps[-1]["frame"] == frame_id:
+                sweeps[-1]["landed_at"] = int(tr.last_frame.frame_id)
             return apply(k, out, dist0, rot0, frame_id, epoch)
 
         worker._apply = recorded_apply
@@ -115,9 +121,28 @@ def record_sweeps(system, poses) -> list:
     return sweeps
 
 
-def drive(system, frames, poses, mapper: str = "async") -> tuple:
+def record_landings_in_solve(system) -> list:
+    """Record the anchors that land while a local BA holding their keyframe
+    free solves: at the BA's write-back (under the map lock) the keyframe is
+    free in the solve and anchored in the map. Returns the list the
+    keyframes' frame ids are appended to."""
+    m, lm = system.map, system.local_mapper
+    landed: list = []
+    apply = lm._ba_apply
+
+    def recorded(res, cams, pts, fixed, *rest):
+        landed.extend(int(m.kf_frame_id[kf]) for i, kf in enumerate(cams)
+                      if not fixed[i] and m.kf_valid[kf] and m.kf_nmi_reloc[kf])
+        return apply(res, cams, pts, fixed, *rest)
+
+    lm._ba_apply = recorded
+    return landed
+
+
+def drive(system, frames, poses, mapper: str = "async", chunks=None) -> tuple:
     """Drive `system` (fresh, from `entry.circuit_system`) over `frames`
-    through `PipelinedFrontend.run` in chunks of 40; with `mapper` "idle"
+    through `PipelinedFrontend.run` in `chunks` ((start, end) frame ranges;
+    by default of 40 frames); with `mapper` "idle"
     the mapping worker is drained after every fused frame, with "drained"
     both workers, an anchor's local BA included ("async" and "sync" drive
     the system as it is built). Drains the workers and shuts
@@ -132,12 +157,13 @@ def drive(system, frames, poses, mapper: str = "async") -> tuple:
         fe.debug_hook = lambda fid, frame, u: (system.nmi_worker.flush(600.0),
                                                system.pipeline.flush(600.0))
     sweeps = record_sweeps(system, poses)
+    landed = record_landings_in_solve(system)
     ts = np.arange(n) / system.cfg.camera.fps
     results = []
     t0 = time.perf_counter()
     try:
-        for c0 in range(0, n, CHUNK):
-            results.extend(fe.run(frames[c0:c0 + CHUNK], ts[c0:c0 + CHUNK], start_id=c0))
+        for c0, c1 in chunks or [(c, min(c + CHUNK, n)) for c in range(0, n, CHUNK)]:
+            results.extend(fe.run(frames[c0:c1], ts[c0:c1], start_id=c0))
         drive_s = time.perf_counter() - t0
         for worker in (system.nmi_worker, system.pipeline):
             if worker is not None:
@@ -164,7 +190,7 @@ def drive(system, frames, poses, mapper: str = "async") -> tuple:
         frames_per_s=n / drive_s, nmi_sweeps=len(sweeps), nmi_snapped=len(snapped),
         nmi_err_before_m=float(np.mean([w["err_before_m"] for w in snapped])) if snapped else None,
         nmi_err_found_m=float(np.mean([w["err_found_m"] for w in snapped])) if snapped else None,
-        sweeps=sweeps, worker_errors=errors)
+        landed_in_solve=landed, sweeps=sweeps, worker_errors=errors)
     return fe, results, summary
 
 
@@ -175,6 +201,9 @@ def main(argv=None) -> int:
                    default=["async"],
                    help="idle: drain the mapping worker after every fused frame; drained: "
                    "both workers; sync: no workers (several modes run one after another)")
+    p.add_argument("--prefix", type=int, default=0,
+                   help="drive the N-frame domain-gap prefix of tools/bench.py's replay instead")
+    p.add_argument("--repeat", type=int, default=1, help="drive the list of modes R times")
     p.add_argument("--out", default="build/circuit_diag")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -185,17 +214,34 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     os.makedirs(args.out, exist_ok=True)
     t = time.perf_counter()
-    system, frames, poses = circuit_entry("cuda")
-    if args.mapper[0] == "sync":
-        system.shutdown()
+    if args.prefix:
+        world, frames = replay_bench.generate_sequence(
+            args.prefix, 960, 540, n_total=CIRCUIT_FRAMES, domain_gap=True, cache=False)
+        poses = np.stack([world.pose_at(i, CIRCUIT_FRAMES) for i in range(args.prefix)])
+        chunks = [(0, replay_bench.WARMUP), (replay_bench.WARMUP, args.prefix)]
+
+        def make(mode):
+            s = replay_bench.build_system(world, 960, 540, async_mapping=mode != "sync",
+                                          threshold=0.1)
+            s.set_init_poses(poses[0], world.pose_at(s.cfg.nmi.offset, CIRCUIT_FRAMES))
+            return s
         system = None
+    else:
+        system, frames, poses = circuit_entry("cuda")
+        chunks = None
+
+        def make(mode):
+            return circuit_system("cuda", asynchronous=mode != "sync")[0]
+        if args.mapper[0] == "sync":
+            system.shutdown()
+            system = None
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t
     failed = False
-    for run, mode in enumerate(args.mapper):
+    for run, mode in enumerate(args.mapper * args.repeat):
         if system is None:
-            system = circuit_system("cuda", asynchronous=mode != "sync")[0]
-        fe, results, summary = drive(system, frames, poses, mode)
+            system = make(mode)
+        fe, results, summary = drive(system, frames, poses, mode, chunks)
         system = None
         errors = summary.pop("worker_errors")
         summary.update(render_s=render_s, worker_errors=len(errors), device=smi)

@@ -149,8 +149,10 @@ def test_port_never_imports_jax():
     vocabulary's training and descent, a pose graph, a Sim3 RANSAC, a PnP,
     the system on six frames through the pipelined front-end (its keyframe
     decisions counted by `tools/circuit_diag`), a saved
-    trajectory and a two-view initialization on the CPU, with every mapping,
-    loop-closing, system and replay module imported,
+    trajectory, a two-view initialization, a rendered circuit sequence
+    (`tools/replay_bench`), its descriptors (`tools/build_vocabulary`) and
+    an overlay (`viz/replay`) on the CPU, with every mapping, loop-closing,
+    system, replay, tool and visualization module imported,
     leaves jax and the JAX package out of sys.modules, and no file of the
     port (nor chip_smoke.py) imports them."""
     code = (
@@ -238,6 +240,17 @@ def test_port_never_imports_jax():
         "r = two_view_init.initialize_two_view(np.tile(np.arange(4), (8, 1)),"
         " np.tile(np.arange(8), (8, 1)), K, uv1, uv1 + 1.0, torch.ones(16, dtype=torch.bool))\n"
         "assert r.Tcw2.shape == (4, 4)\n"
+        "from orbslam2_nmi_torch.tools import (bench, build_vocabulary, device_budget,"
+        " fused_probe, locmode_bench, loop_bench, loop_live, replay_bench)\n"
+        "from orbslam2_nmi_torch.utils import profiling\n"
+        "from orbslam2_nmi_torch.viz import replay as viz\n"
+        "assert device_budget.classify('fused_step') == 'tracking_fused_step'\n"
+        "assert bench.bench_K(540, 960)[0, 0] == 435.0 and 'fused_step' in profiling.NAMES\n"
+        "world, fr = replay_bench.generate_sequence(2, 160, 96, cache=False, device='cpu')\n"
+        "assert fr.shape == (2, 96, 160) and len(build_vocabulary.descriptors(fr[0],"
+        " ORBConfig(n_features=50, n_levels=2), 'cpu')) > 0\n"
+        "viz.save_nmi_debug_overlay(np.zeros((4, 4)), np.ones((4, 4)),"
+        " tempfile.mkdtemp() + '/o.png')\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )

@@ -94,3 +94,34 @@ def test_poses_and_points_match_reference(processed):
     # the NMI keyframes are fixed in the local BA
     np.testing.assert_array_equal(tm.kf_Tcw[:2], before["kf_Tcw"][:2])
     assert tm.version > 0
+
+
+def test_anchor_landed_during_local_ba_matches_reference(processed, monkeypatch):
+    """An NMI anchor that lands on the free keyframe 2 while its local BA
+    solves (the async worker's landing, ROADMAP C4): in both packages the
+    write-back puts the pose solved from the one before the snap over it,
+    and the keyframe stays flagged (a recorded reference behaviour, kept);
+    the two poses agree within the file's pose bar."""
+    from orbslam2_nmi_torch.slam import local_mapping as tlm
+
+    got = []
+    for pkg, mapper in ((tlm, processed["tmapper"]), (jlm, processed["jmapper"])):
+        m = mapper.map
+        snap = m.kf_Tcw[2].copy()
+        snap[:3, 3] += np.float32(0.05)
+        solve = pkg.local_ba.bundle_adjust
+
+        def landing(*a, m=m, snap=snap, solve=solve, **k):
+            with m.lock:
+                m.kf_Tcw[2], m.kf_nmi_reloc[2] = snap, True
+            return solve(*a, **k)
+
+        monkeypatch.setattr(pkg.local_ba, "bundle_adjust", landing)
+        try:
+            mapper.local_bundle_adjust(2)
+        finally:
+            monkeypatch.undo()
+        assert bool(m.kf_nmi_reloc[2]) and np.abs(m.kf_Tcw[2] - snap).max() > 0.04
+        m.kf_nmi_reloc[2] = False
+        got.append(m.kf_Tcw[2].copy())
+    np.testing.assert_allclose(got[0], got[1], atol=POSE_ATOL)

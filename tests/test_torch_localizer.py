@@ -244,6 +244,76 @@ def test_strategy_point_model_matches_reference(case):
     assert np.abs(got.Tcw[:3, 3]).max() < 1e-5  # snapped back to T_true = I
 
 
+# ----------------------------------------------------------- debug overlays
+
+_OVERLAY = re.compile(r"(\d{4})_(best|middle)_s(\d+)_r(\d+)_nmi(-?[\d.]+)\.png")
+
+
+def _overlays(d):
+    """[(seq, tag, s, r, nmi)] of the overlay files in d (PNG, or .npy
+    where PIL is absent), and the arrays."""
+    out, imgs = [], []
+    for p in sorted(d.iterdir()):
+        m = _OVERLAY.fullmatch(p.name.removesuffix(".npy"))
+        assert m, p.name
+        out.append((*m.groups()[:2], int(m[3]), int(m[4]), float(m[5])))
+        if p.suffix == ".npy":
+            imgs.append(np.load(p))
+        else:
+            from PIL import Image
+
+            imgs.append(np.asarray(Image.open(p)))
+    return out, imgs
+
+
+@pytest.mark.parametrize("case", ["point", "mesh"])
+def test_debug_overlays_match_reference(case, tmp_path):
+    """With `debug_dir` set, each grid evaluation writes its best and middle
+    cell's overlay (red: the warped frame, green: the render), named by the
+    grid cell: the point model's whole strategy (test_strategy_point_model's
+    translation case) and one mesh grid (test_evaluate_grid_mesh_path's at
+    x = 0.3, Pallas in interpret mode). The names carry the same sequence,
+    cells (s, r) and tags in both packages, the scores within the grid's
+    bar (printed to 4 decimals), and the images have the camera's shape."""
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    if case == "point":
+        pts, gray = make_world(40000, seed=7)
+        jmodel = jrender.RenderModel(jnp.asarray(pts), jnp.asarray(gray))
+        cfg, T, kw = _strategy_case("translation")
+        frame = np.array(jrender.render_pointcloud(
+            jmodel, jnp.eye(4), jnp.asarray(STRAT_CAM.K), 60, 80, 1.0, 30.0, 3))
+        ref = jloc.NMILocalizer(cfg, STRAT_CAM, jmodel)
+        port = _port_loc(cfg, STRAT_CAM, model=(pts, gray))
+        ref.debug_dir, port.debug_dir = str(tmp_path / "j"), str(tmp_path / "t")
+        ref.relocalize_strategy(jnp.asarray(frame), T, **kw)
+        port.relocalize_strategy(torch.from_numpy(frame), T, **kw)
+        shape, atol = (60, 80, 3), STRATEGY_NMI_ATOL
+    else:
+        mesh = height_field_mesh()
+        cfg = _cfg(synth_num=(3, 1, 1), warp_num=(1, 1, 1), synth_step=(0.4, 0.4, 0.4),
+                   render_far=50.0, threshold=0.05, max_iteration_count=2)
+        ref = jloc.NMILocalizer(cfg, MESH_CAM, None, mesh=MeshModel(*mesh),
+                                force_mesh_raster=True)
+        port = _port_loc(cfg, MESH_CAM, mesh=mesh)
+        ref.debug_dir, port.debug_dir = str(tmp_path / "j"), str(tmp_path / "t")
+        frame = mesh_frame(mesh)
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.3
+        ref.relocalize_once(jnp.asarray(frame.numpy()), T, ref.initial_kernel)
+        port.relocalize_once(frame, T, port.initial_kernel)
+        shape, atol = (48, 256, 3), MESH_GRID_ATOL
+    got, imgs = _overlays(tmp_path / "t")
+    want, _ = _overlays(tmp_path / "j")
+    assert [g[:4] for g in got] == [w[:4] for w in want] and len(got) >= 2
+    assert [g[1] for g in got[:2]] == ["best", "middle"]
+    for g, w in zip(got, want):
+        assert abs(g[4] - w[4]) <= atol + 1e-4, (g, w)
+    for img in imgs:
+        assert img.shape == shape and img.dtype == np.uint8 and not img[..., 2].any()
+        assert img[..., 0].any() and img[..., 1].any()
+
+
 # ----------------------------------------------------------------- contracts
 
 

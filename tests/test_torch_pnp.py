@@ -17,9 +17,12 @@ Bars, measured on these inputs:
     basis `eigh` picks freely, and EPnP's cases use its first vectors (27 of
     128 hypotheses counted other inliers than the reference's); the vote and
     the polish agree.
+A hypothesis that samples a point far enough to overflow counts no inlier,
+and RANSAC's outcome with such hypotheses equals the reference's.
 On the card (the `gpu` marker), `pnp_ransac` against the CPU's within 3e-6
 with the same inlier count, the gap recorded as a junit property (NVIDIA
-H100 80GB HBM3, 700.00 W: 4.8e-7).
+H100 80GB HBM3, 700.00 W: 4.8e-7), and without an error on hypotheses that
+overflow, where CUDA's `eigh` raises on the unmasked batch.
 """
 
 import jax
@@ -124,6 +127,60 @@ def test_pnp_ransac_with_reference_draws(which):
     assert not out.inliers.numpy()[:n_out].any()
     d = np.asarray(jse3.se3_log(jnp.asarray(np.linalg.inv(T_true) @ out.Tcw.numpy())))
     assert np.linalg.norm(d[:3]) < 0.05 and np.linalg.norm(d[3:]) < 0.01
+
+
+def _ransac_with_a_far_point(device="cpu", far=1e30):
+    """The "epnp" scene with point 40 moved to `far` m: in the JAX package
+    every hypothesis that samples it overflows to NaN."""
+    K, pw, uv, _, _ = _ransac_scene("epnp")
+    pw = pw.copy()
+    pw[40] = far
+    n = len(pw)
+    key = jax.random.PRNGKey(0)
+    draws = JaxDraws.draws(key, n, n, 128, 4)
+    out = tp.pnp_ransac(torch.from_numpy(draws).to(device), K,
+                        *_t(pw, uv, np.ones(n, np.float32), np.ones(n, bool), device=device))
+    return key, K, pw, uv, draws, out
+
+
+@pytest.mark.parametrize("far", [1e30, 1e20])
+def test_non_finite_hypothesis_counts_no_inlier(far):
+    """RANSAC with hypotheses that sample a point at 1e30 or 1e20 m (whose
+    square overflows float32): they count no inlier, and the vote and the
+    polish give the JAX package's pose and inliers on the same draws (the
+    JAX package's `eigh` returns NaN there)."""
+    key, K, pw, uv, draws, out = _ransac_with_a_far_point(far=far)
+    n = len(pw)
+    assert (draws == 40).any(-1).sum() > 0
+    ref = jp.pnp_ransac(key, jnp.asarray(K), jnp.asarray(pw), jnp.asarray(uv), jnp.ones(n),
+                        jnp.ones(n, bool))
+    assert bool(out.ok) and int(out.n_inliers) == int(ref.n_inliers)
+    np.testing.assert_allclose(out.Tcw.numpy(), np.asarray(ref.Tcw), atol=T_ATOL, rtol=0)
+    np.testing.assert_array_equal(out.inliers.numpy(), np.asarray(ref.inliers))
+    assert not out.inliers.numpy()[40]
+
+
+@pytest.mark.gpu
+def test_non_finite_hypothesis_on_card(cuda_device):  # noqa: F811
+    """The same RANSAC on the card: no error, the CPU's inliers. Without the
+    mask CUDA's batched `eigh` raises on one non-finite matrix of the batch
+    (the failure of ROADMAP C5; on finite matrices up to 3e38 it returns)."""
+    g = torch.Generator().manual_seed(0)
+    torch.randn(128, 3, 3, generator=g)
+    a = torch.randn(128, 12, 12, generator=g)
+    A = (a @ a.transpose(1, 2)).to(cuda_device)
+    for value in (float("inf"), float("nan"), 3e38):
+        B = A.clone()
+        B[114, 0, 0] = B[114, 1, 0] = B[114, 0, 1] = value
+        if value == 3e38:
+            torch.linalg.eigh(B)
+        else:
+            with pytest.raises(torch.linalg.LinAlgError):
+                torch.linalg.eigh(B)
+    *_, cpu = _ransac_with_a_far_point()
+    *_, card = _ransac_with_a_far_point(cuda_device)
+    assert bool(card.ok) and int(card.n_inliers) == int(cpu.n_inliers)
+    np.testing.assert_array_equal(card.inliers.cpu().numpy(), cpu.inliers.numpy())
 
 
 @pytest.mark.gpu
