@@ -8,7 +8,8 @@ Run from the root of a checkout. It
   2. builds the CUDA kernels from `orbslam2_nmi_torch/csrc/` (timed);
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, within the tolerances stated below, and times
-     kernel, plain version and (where one exists) one PyTorch library call;
+     kernel, plain version and (where one exists) one PyTorch library call,
+     or a near relative of one (B1 and B2: `torch.bincount` of the histograms);
      holds B1, B2 and B3 against their plain versions on adversarial inputs
      too (`orbslam2_nmi_torch/kernel_cases.py`); times B2's C entry point
      alone beside its wrapper, so the wrapper's host time shows;
@@ -115,10 +116,23 @@ Run from the root of a checkout. It
      the replayed step in tracking_fused_step, the idle share); the async
      replay's last frame drawn, its map plotted, and the debug overlays of
      one `relocalize_strategy` named by each sweep's argmax;
- 12. prints a JSON line of the step times, one of the localizer's, one of the
+ 12. the sharded paths (`orbslam2_nmi_torch/parallel/`) on worlds of ranks
+     spawned from this process (`MC_WORLDS`): a NCCL world of one rank on
+     cuda:0, and worlds of 2 and 4 gloo ranks sharing the card (a check of
+     the partition, pads included, not a scaling figure), each on four
+     problems at full width: the mesh NMI search of the grid step (960x540,
+     27 x 27), the splat NMI search of the localizer's pointcloud case (a)
+     (125 x 27 on 2,211,835 points), a local BA's (C, P) = (8, 2048) and an
+     essential graph at V 424; every rank's result equal, each held against
+     the unsharded call on the card (`MC_*` bars), each rank's launches of
+     B1, B2, B3 and the sampler once a mesh grid; the sharded and the
+     unsharded call timed in turns in the one-rank world; then
+     `entry.dryrun_multichip(2)` on two gloo ranks;
+ 13. prints a JSON line of the step times, one of the localizer's, one of the
      tracking phase's, one of the mapping phase's, one of the loop phase's,
-     one of the system phase's, one of the tools phase's, one JSON line
-     listing the kernels, then the final JSON line {"ok": true, ...}.
+     one of the system phase's, one of the tools phase's, one of the
+     multichip phase's, one JSON line listing the kernels, then the final
+     JSON line {"ok": true, ...}.
 The grid step and the localizer's case (b) also run with TF32 turned on for
 the whole process, and must give the same scores and pose (fault C1).
 Any failed check raises, and the script exits non-zero without the final
@@ -2023,6 +2037,276 @@ def tools_phase(dev, smi, check, cuda_ms):
     return rec
 
 
+# The multichip phase: the sharded paths (orbslam2_nmi_torch/parallel/) on
+# worlds of ranks spawned from this process (torch.multiprocessing, spawn).
+# A NCCL world of one rank on cuda:0 runs the production backend and its
+# collectives; worlds of 2 and 4 gloo ranks share the one card (NCCL refuses
+# two ranks on one GPU), which is the only way one card holds a true
+# partition, pads included (27 renders over 2 or 4 ranks). They are a check,
+# not a scaling figure.
+MC_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+MC_REPS = 5  # timed calls of each problem after one warm-up in the NCCL world (medians)
+MC_REPS_SHARED = 2  # the same in the shared-card gloo worlds (a check, not a figure)
+MC_NMI_ATOL = 1e-5  # each (render, warp) pair is scored on its own: expected 0
+MC_BA_CAM_ATOL = 5e-3  # tests/test_sharding.py:22-32's bar
+MC_PG_ATOL = 1e-4
+MC_BA_SHAPE = (8, 2048)  # a local BA's (C, P) on the mapping path (PERF.md, H3)
+MC_PG_V = LOOP_PG_V
+
+
+def _mc_ba_problem():
+    """A seeded local BA at the mapping path's size: 8 keyframes along 1.4 m
+    (the first 2 fixed), 2,048 points 10-30 m ahead, each seen by each
+    keyframe with probability 0.4 (~6,500 observations; the mapping phase's
+    local BAs have 3,893-10,465), octave weights, 0.5 px of noise. Numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    C, P = MC_BA_SHAPE
+    K = np.array([[450.0, 0, 480.0], [0, 450.0, 270.0], [0, 0, 1]], np.float32)
+    pw = np.stack([rng.uniform(-10, 10, P), rng.uniform(-6, 6, P), rng.uniform(10, 30, P)],
+                  -1).astype(np.float32)
+    cams = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+    cams[:, 0, 3] = -np.linspace(0, 1.4, C)
+    oc, op = np.meshgrid(np.arange(C), np.arange(P), indexing="ij")
+    keep = rng.random(oc.size) < 0.4
+    oc, op = oc.ravel()[keep], op.ravel()[keep]
+    pc = np.einsum("oij,oj->oi", cams[oc, :3, :3], pw[op]) + cams[oc, :3, 3]
+    uv = pc[:, :2] / pc[:, 2:3] * 450.0 + [480.0, 270.0] + rng.normal(0, 0.5, (len(oc), 2))
+    cams0 = cams.copy()
+    cams0[2:, :3, 3] += rng.normal(0, 0.02, (C - 2, 3))
+    level = rng.integers(0, 8, len(oc))
+    return dict(K=K, cam_Tcw=cams0, cam_fixed=np.arange(C) < 2, cam_valid=np.ones(C, bool),
+                pts_w=pw + rng.normal(0, 0.05, pw.shape).astype(np.float32),
+                pts_valid=np.ones(P, bool), obs_cam=oc.astype(np.int32),
+                obs_pt=op.astype(np.int32), obs_uv=uv.astype(np.float32),
+                obs_inv_sigma2=(1.2 ** (-2.0 * level)).astype(np.float32),
+                obs_valid=np.ones(len(oc), bool))
+
+
+def _mc_pose_graph():
+    """A seeded essential graph at the loop phase's V 424: a drifting chain,
+    one loop edge and covisibility edges every 3rd keyframe to the 8th after
+    it (E 563, a multiple of neither 2 nor 4, so the edge padding runs).
+    Numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    V = MC_PG_V
+    a = np.linspace(0, 2 * np.pi * 0.9, V)
+    gt = np.tile(np.eye(4), (V, 1, 1))
+    for i, ang in enumerate(a):
+        c, s = np.cos(ang), np.sin(ang)
+        R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])  # yaw about the camera's y
+        center = np.array([40 * np.sin(ang), rng.normal(0, 0.05), 40 * (1 - np.cos(ang))])
+        gt[i, :3, :3] = R.T
+        gt[i, :3, 3] = -R.T @ center
+    bias = np.eye(4)
+    bias[:3, :3] = np.array([[1, -0.002, 0], [0.002, 1, 0], [0, 0, 1]])
+    bias[:3, 3] = (0.01, 0.005, 0.0)
+    est = [gt[0]]
+    for j in range(1, V):
+        est.append(bias @ gt[j] @ np.linalg.inv(gt[j - 1]) @ est[-1])
+    est = np.stack(est)
+    cov_i = np.arange(0, V - 8, 3)
+    ei = np.concatenate([np.arange(V - 1), [0], cov_i]).astype(np.int32)
+    ej = np.concatenate([np.arange(1, V), [V - 1], cov_i + 8]).astype(np.int32)
+    meas = [est[j] @ np.linalg.inv(est[i]) for i, j in zip(ei[:V - 1], ej[:V - 1])]
+    meas += [gt[j] @ np.linalg.inv(gt[i]) for i, j in zip(ei[V - 1:], ej[V - 1:])]
+    return dict(Scw=est.astype(np.float32), fixed=np.arange(V) == 0, valid=np.ones(V, bool),
+                edge_i=ei, edge_j=ej, edge_Sji=np.stack(meas).astype(np.float32),
+                edge_valid=np.ones(len(ei), bool))
+
+
+def multichip_rank(reps, unsharded):
+    """One rank of a multichip world: each of the four problems through its
+    sharded function (one warm-up, the launch counts of one call, `reps`
+    timed calls, each after a barrier), and with `unsharded` the
+    single-process call on the same inputs, timed in turn with it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from orbslam2_nmi_torch import entry as entry_mod
+    from orbslam2_nmi_torch import kernels
+    from orbslam2_nmi_torch.ops import histogram_nmi, homography, render
+    from orbslam2_nmi_torch.parallel import distributed, mesh as mesh_lib
+    from orbslam2_nmi_torch.parallel import sharded_ba, sharded_nmi, sharded_pose_graph
+    from orbslam2_nmi_torch.solvers import local_ba, pose_graph
+
+    dev = distributed.local_device()
+    mesh = mesh_lib.make_mesh()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    NEAR, FAR = entry_mod.NEAR, entry_mod.FAR
+
+    # the grid step of entry(): 960x540, 27 x 27, capacity 128
+    fn, (frame, Tcw) = entry_mod.entry(device=dev)
+    # the localizer's pointcloud case (a): 2,211,835 points, 5x5x5 by 27 at
+    # one translation step off
+    K = entry_mod.camera_K(540, 960)
+    model = render.model_from_pointcloud(render.mesh_to_points(entry_mod._toy_mesh()), dev)
+    frame4 = render.render_pointcloud(model, torch.eye(4, device=dev), K, 540, 960, NEAR, FAR,
+                                      point_size=3)
+    T_pert = torch.eye(4, device=dev)
+    T_pert[0, 3] = -entry_mod.SYNTH_STEP[0]
+    off4 = render.translation_grid_offsets((5, 5, 5), entry_mod.SYNTH_STEP, device=dev)
+    ang4 = homography.rotation_grid_angles((3, 3, 3), entry_mod.WARP_STEP, device=dev)
+    ba = local_ba.BAProblem(**{k: t(v) for k, v in _mc_ba_problem().items()})
+    pg = pose_graph.PoseGraphProblem(**{k: t(v) for k, v in _mc_pose_graph().items()})
+
+    problems = {
+        "nmi_mesh": (lambda: sharded_nmi.sharded_nmi_search_mesh(
+            mesh, fn.binned, frame, Tcw, fn.offsets, fn.angles, fn.K, NEAR, FAR),
+            lambda: fn(frame, Tcw)[0]),
+        "nmi_splat": (lambda: sharded_nmi.sharded_nmi_search(
+            mesh, model, frame4, T_pert, off4, ang4, K, 540, 960, NEAR, FAR, 3),
+            lambda: histogram_nmi.nmi_scores(
+                render.render_translation_grid(model, T_pert, K, off4, 540, 960, NEAR, FAR, 3),
+                homography.warp_rotation_grid(frame4, K, ang4))),
+        "ba": (lambda: tuple(sharded_ba.sharded_bundle_adjust(mesh, ba)),
+               lambda: tuple(local_ba.bundle_adjust(ba))),
+        "pose_graph": (lambda: sharded_pose_graph.sharded_optimize_pose_graph(mesh, pg),
+                       lambda: pose_graph.optimize_pose_graph(pg)),
+    }
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(f):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = f()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rec = {}
+    for name, (sharded, plain) in problems.items():
+        sharded()
+        if unsharded:
+            plain()
+        kernels.reset_launches()
+        out, _ = timed(sharded)
+        r = dict(result=out, launches=dict(kernels.LAUNCHES), ms=[])
+        if unsharded:
+            r["unsharded"], _ = timed(plain)
+            r["unsharded_ms"] = []
+        for _ in range(reps):  # in turns: sharded, unsharded, sharded, ...
+            r["ms"].append(timed(sharded)[1])
+            if unsharded:
+                r["unsharded_ms"].append(timed(plain)[1])
+        rec[name] = r
+    rec["rank"] = dist.get_rank()
+    rec["device"] = str(dev)
+    return rec
+
+
+def multichip_phase(smi, check, device="cuda"):
+    """Phase 12: the sharded paths on worlds of ranks (see MC_WORLDS), each
+    result held against the unsharded single-process call on the card, the
+    launches of each rank counted, the times printed; then
+    `entry.dryrun_multichip(2)`. Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import entry as entry_mod
+    from orbslam2_nmi_torch import kernels
+    from orbslam2_nmi_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    print("multichip: the sharded paths on worlds of ranks on this card "
+          f"({torch.cuda.device_count()} visible)")
+    if device == "cuda":
+        kernels.build()  # built before any rank starts (the ranks find it)
+        torch.cuda.empty_cache()
+    ba_np, pg_np = _mc_ba_problem(), _mc_pose_graph()
+    print(f"  problems: the grid step 960x540, 27 x 27, capacity 128 (mesh); the localizer's "
+          f"pointcloud case (a), 125 x 27 on 2,211,835 points (splat); BA (C, P) = "
+          f"{MC_BA_SHAPE}, {len(ba_np['obs_cam'])} observations; essential graph V "
+          f"{MC_PG_V}, E {len(pg_np['edge_i'])}")
+
+    def ba_rmse(cam, pts):
+        T = cam[ba_np["obs_cam"]]
+        pc = np.einsum("oij,oj->oi", T[:, :3, :3], pts[ba_np["obs_pt"]]) + T[:, :3, 3]
+        K = ba_np["K"]
+        uv = pc[:, :2] / pc[:, 2:3] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        return float(np.sqrt(np.mean(np.sum((ba_np["obs_uv"] - uv) ** 2, -1))))
+
+    ref = None
+    record = {"worlds": []}
+    for n, backend in MC_WORLDS:
+        t0 = time.perf_counter()
+        reps = MC_REPS if n == 1 else MC_REPS_SHARED
+        outs = distributed.spawn_world(multichip_rank, n, reps, n == 1, device=device,
+                                       backend=backend if device == "cuda" else "gloo")
+        wall = time.perf_counter() - t0
+        what = (f"NCCL world of {n} rank on cuda:0" if backend == "nccl" else
+                f"gloo world of {n} ranks sharing cuda:0 (a check of the partition, not a "
+                "scaling figure)")
+        print(f"  {what}: {wall:.1f} s with spawning")
+        if ref is None:
+            ref = {k: outs[0][k]["unsharded"] for k in ("nmi_mesh", "nmi_splat", "ba",
+                                                         "pose_graph")}
+        world = dict(ranks=n, backend=backend, wall_s=wall, problems={})
+        for name in ("nmi_mesh", "nmi_splat", "ba", "pose_graph"):
+            res = [o[name]["result"] for o in outs]
+            parts = [x if isinstance(x, tuple) else (x,) for x in res]
+            for r in range(1, n):
+                check(all(np.array_equal(a, b) for a, b in zip(parts[0], parts[r])),
+                      f"{name}: rank {r}'s result equals rank 0's")
+            got = res[0]
+            launches = [o[name]["launches"] for o in outs]
+            print(f"    {name}: launches per rank {launches}")
+            if name == "nmi_mesh":
+                check(all(ln == {k: 1 for k in kernels.LAUNCHES} for ln in launches),
+                      f"{name}: each rank launched B1, B2, B3 and the sampler once for the grid")
+            elif name == "nmi_splat":
+                check(all(ln["joint_entropy"] == 1 and ln["marginal_entropy"] == 1
+                          and ln["rasterize_keys"] == 0 and ln["sample_texture"] == 0
+                          for ln in launches),
+                      f"{name}: each rank launched B1 and B2 once, B3 and the sampler never")
+            if name.startswith("nmi"):
+                d = float(np.abs(got - ref[name]).max())
+                am, rm = int(np.argmax(got)), int(np.argmax(ref[name]))
+                check(got.shape == ref[name].shape and np.isfinite(got).all()
+                      and d <= MC_NMI_ATOL and am == rm,
+                      f"{name} {got.shape}: max |sharded - unsharded| {d} <= {MC_NMI_ATOL}, "
+                      f"argmax {am} = {rm}")
+                gap = dict(max_abs=d, argmax=am)
+            elif name == "ba":
+                cam, pts = got[0], got[1]
+                d = float(np.abs(cam - ref["ba"][0]).max())
+                r1, r2 = ba_rmse(ref["ba"][0], ref["ba"][1]), ba_rmse(cam, pts)
+                check(d <= MC_BA_CAM_ATOL and r2 <= max(2 * r1, 0.05),
+                      f"ba: cameras within {d:.3e} <= {MC_BA_CAM_ATOL} of the unsharded, "
+                      f"reprojection RMSE {r2:.4f} <= max(2 x {r1:.4f}, 0.05) px")
+                check(np.array_equal(cam[:2], ba_np["cam_Tcw"][:2]),
+                      "ba: the fixed cameras equal to the bit")
+                gap = dict(cam_max_abs=d, rmse=r2, unsharded_rmse=r1)
+            else:
+                d = float(np.abs(got - ref["pose_graph"]).max())
+                check(np.isfinite(got).all() and d <= MC_PG_ATOL,
+                      f"pose_graph: max |sharded - unsharded| {d:.3e} <= {MC_PG_ATOL}")
+                gap = dict(max_abs=d)
+            ms = float(np.median(outs[0][name]["ms"]))
+            line = f"    {name}: sharded {ms:.2f} ms (median of {reps}, rank 0)"
+            p = dict(gap, launches=launches, sharded_ms=outs[0][name]["ms"], sharded_median_ms=ms)
+            if n == 1:
+                um = float(np.median(outs[0][name]["unsharded_ms"]))
+                line += f", unsharded {um:.2f} ms: the wrapper and its collectives {ms - um:+.2f} ms"
+                p.update(unsharded_ms=outs[0][name]["unsharded_ms"], unsharded_median_ms=um)
+            print(line + f"  [{smi}]")
+            world["problems"][name] = p
+        record["worlds"].append(world)
+
+    print("  entry.dryrun_multichip(2) (gloo: two ranks on one card)")
+    entry_mod.dryrun_multichip(2, device=device, backend="gloo")
+    record["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase took {record['phase_s']:.1f} s")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2249,12 +2533,24 @@ def main() -> int:
                   f"mask_zero={mask_zero}: max |kernel - plain| {d} <= {ENTROPY_ATOL}")
             e1 = max(e1, d)
     bound, by = _bound_ms((S + R) * P + S * R * 4, S * R * P)
+    # a near relative only: one torch.bincount over the pair-offset joint
+    # indices pair * 65536 + a * 256 + b computes the S * R histograms, and
+    # no entropy
+    pair = (torch.arange(S, device=dev)[:, None] * R + torch.arange(R, device=dev)[None, :])
+    joint_idx = (pair[:, :, None] * 65536 + sb.long()[:, None, :] * 256
+                 + wb.long()[None, :, :]).reshape(-1)
     rows["joint_entropy"] = dict(
         source="orbslam2_nmi_torch/csrc/histogram_nmi.cu",
         replaces="orbslam2_nmi_tpu/ops/histogram_nmi.py:266", max_abs_err=e1,
         ms=cuda_ms(lambda: hn.joint_entropy_grid(sb, wb, P)),
         plain_ms=cuda_ms(lambda: hn.joint_entropy_grid_plain(sb, wb, P), reps=2, warmup=1),
-        bound_ms=bound, bound_by=by, library_ms=None)
+        bound_ms=bound, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.bincount(joint_idx, minlength=S * R * 65536)))
+    print(f"  B1 over {S} x {R} pairs: {rows['joint_entropy']['ms']:.5f} ms; one torch.bincount "
+          f"of the {joint_idx.numel()} pair-offset joint indices (histograms only) "
+          f"{rows['joint_entropy']['library_ms']:.5f} ms  [{smi}]")
+    del pair, joint_idx
+    torch.cuda.empty_cache()
 
     # --- the main path ----------------------------------------------------------
     print("main path: entry() step at full width")
@@ -2315,6 +2611,7 @@ def main() -> int:
         session.shutdown()
     system_record = system_phase(dev, smi, check)
     tools_record = tools_phase(dev, smi, check, cuda_ms)
+    multichip_record = multichip_phase(smi, check)
     rc = track_record["raster_check"]
     rows["rasterize_keys"]["max_abs_err"] = max(rows["rasterize_keys"]["max_abs_err"],
                                                 rc["raster_err"])
@@ -2336,6 +2633,7 @@ def main() -> int:
     print(json.dumps({"loop": loop_record, "card": smi}))
     print(json.dumps({"system": system_record, "card": smi}, default=float))
     print(json.dumps({"tools": tools_record, "card": smi}, default=float))
+    print(json.dumps({"multichip": multichip_record, "card": smi}, default=float))
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

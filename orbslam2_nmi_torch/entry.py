@@ -58,6 +58,15 @@ mapping and async NMI) on the JAX package's full-circuit record, with the
         fe.run(frames[c0:c0 + 40], np.arange(c0, c0 + 40) / 30.0, start_id=c0)
     system.shutdown()
 
+`dryrun_multichip(n)` runs the sharded paths (`parallel/`) once each on a
+fresh world of n ranks at tiny shapes, the counterpart of
+`__graft_entry__.dryrun_multichip`: the splat and the mesh NMI search
+(64x80, 8 renders x 4 warps), the Schur BA (6 cameras, 64 points) and the
+essential graph (V 9):
+
+    dryrun_multichip(2)                     # NCCL, one card a rank
+    dryrun_multichip(4, device="cpu")       # gloo on the CPU
+
 All of them run on CUDA unless the caller passes `device="cpu"` (the CPU
 runs the kernels' plain versions; the tests use it at small sizes).
 """
@@ -114,6 +123,19 @@ def _toy_mesh(n=80, seed=0):
     ).astype(np.int32)
     tex = rng.uniform(10, 245, (256, 256)).astype(np.float32)
     return MeshModel(vertices=verts, uvs=uvs, faces=faces, texture_gray=tex)
+
+
+def _toy_model(n_points=200_000, seed=0, device="cuda") -> render.RenderModel:
+    """The reference entry's point world: a height field over 80 x 60 m at
+    ~15 m depth, gray from a checker of the x and y coordinates."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-40, 40, n_points)
+    y = rng.uniform(-30, 30, n_points)
+    z = 15.0 + 3.0 * np.sin(x * 0.3) * np.cos(y * 0.25)
+    pts = np.stack([x, y, z], -1).astype(np.float32)
+    gray = ((np.floor(x * 1.1) * 53 + np.floor(y * 1.1) * 101) % 256).astype(np.float32)
+    return render.RenderModel(points=torch.from_numpy(pts).to(device),
+                              gray=torch.from_numpy(gray).to(device))
 
 
 def camera_K(height: int, width: int) -> np.ndarray:
@@ -786,3 +808,97 @@ def circuit_entry(device: str | torch.device = "cuda"):
     frames = world.render_frames(list(range(n)), n, 960, 540, device=system.device)
     poses = np.stack([world.pose_at(i, n) for i in range(n)])
     return system, frames, poses
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths on a world of ranks
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_rank() -> dict:
+    """One rank of `dryrun_multichip`: each sharded path once, at the JAX
+    package's dry-run shapes (`__graft_entry__.py:90-218`)."""
+    from orbslam2_nmi_torch.parallel import distributed, mesh as mesh_lib
+    from orbslam2_nmi_torch.parallel import sharded_ba, sharded_nmi, sharded_pose_graph
+    from orbslam2_nmi_torch.solvers import local_ba, pose_graph
+
+    dev = distributed.local_device()
+    mesh = mesh_lib.make_mesh()
+    eye = np.eye(4, dtype=np.float32)
+    I4 = torch.eye(4, dtype=torch.float32, device=dev)
+
+    # pose-grid-sharded NMI search (64x80 frames, 8 renders x 4 warps)
+    Hh, Ww = 64, 80
+    K = np.array([[60.0, 0, 40.0], [0, 60.0, 32.0], [0, 0, 1]], np.float32)
+    model = _toy_model(n_points=5000, seed=2, device=dev)
+    offsets = render.translation_grid_offsets((2, 2, 2), (0.3, 0.3, 0.3), device=dev)
+    angles = homography.rotation_grid_angles((2, 2, 1), (0.03, 0.03, 0.03), device=dev)
+    frame = render.render_pointcloud(model, I4, K, Hh, Ww, 5.0, 30.0, 3)
+    scores = sharded_nmi.sharded_nmi_search(mesh, model, frame, I4, offsets, angles, K, Hh, Ww,
+                                            5.0, 30.0)
+    assert scores.shape == (8, 4), scores.shape
+
+    # the mesh-raster sharded NMI search (the reference's default render mode 1)
+    binned = raster.bin_mesh(_toy_mesh(n=24, seed=4), eye, K, Hh, 128, 5.0, 40.0,
+                             max_offset=(0.3, 0.3, 0.3), device=dev)
+    frame_m = raster.render_mesh_grid(binned, I4, K, torch.zeros(1, 3, device=dev), 5.0,
+                                      40.0)[0]
+    scores_m = sharded_nmi.sharded_nmi_search_mesh(mesh, binned, frame_m, I4, offsets, angles,
+                                                   K, 5.0, 40.0)
+    assert scores_m.shape == (8, 4), scores_m.shape
+
+    # the point-sharded Schur BA (6 cameras, 64 points, every point in every camera)
+    rng = np.random.default_rng(3)
+    n_cams, n_pts = 6, 64
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(6, 12, n_pts)], -1).astype(np.float32)
+    Kb = np.array([[100.0, 0, 40], [0, 100.0, 32], [0, 0, 1]], np.float32)
+    cams = np.tile(eye, (n_cams, 1, 1))
+    cams[:, 0, 3] = np.linspace(0, 1, n_cams)
+    pc = np.einsum("cij,pj->cpi", cams[:, :3, :3], pts) + cams[:, None, :3, 3]
+    uv = (pc[..., :2] / pc[..., 2:3] * [100.0, 100.0] + [40.0, 32.0]).reshape(-1, 2)
+    O = n_cams * n_pts
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    prob = local_ba.BAProblem(
+        K=t(Kb), cam_Tcw=t(cams), cam_fixed=t(np.arange(n_cams) < 2),
+        cam_valid=t(np.ones(n_cams, bool)),
+        pts_w=t(pts + rng.normal(0, 0.02, pts.shape).astype(np.float32)),
+        pts_valid=t(np.ones(n_pts, bool)),
+        obs_cam=t(np.repeat(np.arange(n_cams), n_pts).astype(np.int32)),
+        obs_pt=t(np.tile(np.arange(n_pts), n_cams).astype(np.int32)),
+        obs_uv=t(uv.astype(np.float32)), obs_inv_sigma2=t(np.ones(O, np.float32)),
+        obs_valid=t(np.ones(O, bool)))
+    res = sharded_ba.sharded_bundle_adjust(mesh, prob, iters1=2, iters2=2)
+    assert bool(torch.isfinite(res.cam_Tcw).all())
+
+    # the edge-sharded essential graph (the post-loop path)
+    V = 9
+    est = np.tile(eye, (V, 1, 1))
+    est[:, 0, 3] = np.linspace(0, 2, V) + rng.normal(0, 0.02, V)
+    ei = list(range(V - 1)) + [0]
+    ej = list(range(1, V)) + [V - 1]
+    meas = np.stack([est[j] @ np.linalg.inv(est[i]) for i, j in zip(ei, ej)]).astype(np.float32)
+    pprob = pose_graph.PoseGraphProblem(
+        Scw=t(est), fixed=t(np.arange(V) == 0), valid=t(np.ones(V, bool)),
+        edge_i=t(np.asarray(ei, np.int32)), edge_j=t(np.asarray(ej, np.int32)),
+        edge_Sji=t(meas), edge_valid=t(np.ones(len(ei), bool)))
+    out = sharded_pose_graph.sharded_optimize_pose_graph(mesh, pprob, iters=3)
+    assert bool(torch.isfinite(out).all())
+    return {"nmi": scores, "nmi_mesh": scores_m, "ba_cam_Tcw": res.cam_Tcw, "pose_graph": out}
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
+                     backend: str | None = None) -> list:
+    """Run each sharded path once on a fresh world of `n_devices` ranks, at
+    tiny shapes (`_dryrun_rank`), print the JAX function's line and return
+    every rank's outputs. On CUDA the kernels are built here, before any rank
+    starts; NCCL takes one card a rank (gloo, `backend="gloo"`, lets ranks
+    share one)."""
+    if kernels.resolve_device(device, "dryrun_multichip").type == "cuda":
+        kernels.build()
+    from orbslam2_nmi_torch.parallel import distributed
+
+    outs = distributed.spawn_world(_dryrun_rank, n_devices, backend=backend, device=device)
+    print(f"dryrun_multichip({n_devices}): sharded NMI {tuple(outs[0]['nmi'].shape)} + "
+          "sharded BA + sharded pose graph ok")
+    return outs

@@ -18,6 +18,7 @@ wrapper, so the CPU tests import every module without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,6 +73,9 @@ def build(verbose: bool = False) -> Path:
 
     Returns its path; an existing library with the same hash is reused. With
     `verbose`, `ptxas -v` reports each kernel's registers and shared memory.
+    Safe across processes (the ranks of one world build at once): the build
+    holds an exclusive `flock` on `build/kernels/build.lock`, and a process
+    that waited for it finds the library built and reuses it.
     """
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _SOURCES:
@@ -80,7 +84,16 @@ def build(verbose: bool = False) -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not so.exists():
+            _compile(_nvcc(), so, verbose)
+    return so
+
+
+def _compile(nvcc: str, so: Path, verbose: bool) -> None:
+    """nvcc each source to an object beside `so`, all at once, and link them
+    into `so` (through a temporary name, so `so` appears whole)."""
     flags = list(NVCC_FLAGS) + (["-Xptxas=-v"] if verbose else [])
     objs, procs = [], []
     for src in _SOURCES:
@@ -107,7 +120,6 @@ def build(verbose: bool = False) -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
     os.replace(tmp, so)
-    return so
 
 
 def lib() -> ctypes.CDLL:

@@ -14,6 +14,12 @@ Both take gray levels packed to uint8 (256 bins) with no padding, and
 normalize by the full pixel count. Each wrapper launches its kernel for CUDA
 tensors and runs its plain PyTorch version for CPU tensors only.
 
+Fewer bins (`n_bins` < 256, `NMIConfig.n_bins`) need no other kernel: the
+gray levels are clamped to `n_bins - 1` before packing, as the reference
+clips them (its histogram_nmi.py:48-50), so only the first `n_bins` of the
+256 counted bins can be nonzero, and an empty bin adds 0 to an entropy. More
+than 256 bins do not fit in one byte and raise.
+
 Score metrics (reference kernel.cuh:22-23, NMI.cu:344-359):
     SUC  = 2 * (1 - Hab / (Ha + Hb))     <- enabled in the reference
     ENMI = (Ha + Hb) / Hab
@@ -40,9 +46,17 @@ MARGINAL_MAX_IMAGES = 65535  # kernel B2's limit: one image a row of its grid (g
 _LOG2E = 1.4426950408889634
 
 
-def quantize_to_bins(img: torch.Tensor) -> torch.Tensor:
+def _top_bin(n_bins: int) -> int:
+    """The last bin index of an `n_bins` histogram packed in one byte."""
+    if not 1 <= n_bins <= N_BINS:
+        raise ValueError(f"n_bins must be in [1, {N_BINS}] (the bins are packed in one byte), "
+                         f"got {n_bins}")
+    return n_bins - 1
+
+
+def quantize_to_bins(img: torch.Tensor, n_bins: int = N_BINS) -> torch.Tensor:
     """float [0,255] image -> int32 bin indices (uint8 semantics like NMI.cu)."""
-    return torch.clamp(img, 0, N_BINS - 1).to(torch.int32)
+    return torch.clamp(img, 0, _top_bin(n_bins)).to(torch.int32)
 
 
 def _entropy_of_counts(hist: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -232,13 +246,14 @@ def marginal_entropy_sets(synth_bins: torch.Tensor, warp_bins: torch.Tensor,
     return _launch_marginal(synth_bins, warp_bins, n_valid)
 
 
-def pack_bins(img: torch.Tensor) -> torch.Tensor:
+def pack_bins(img: torch.Tensor, n_bins: int = N_BINS) -> torch.Tensor:
     """[N, ...] images in [0, 255] -> [N, P] uint8 bins (quantize_to_bins'
     clamp-and-truncate, packed to one byte per pixel)."""
+    top = _top_bin(n_bins)
     flat = img.reshape(img.shape[0], -1)
     if flat.dtype == torch.uint8:
-        return flat.contiguous()
-    return torch.clamp(flat, 0, N_BINS - 1).to(torch.uint8)
+        return (flat if top == N_BINS - 1 else torch.clamp(flat, max=top)).contiguous()
+    return torch.clamp(flat, 0, top).to(torch.uint8)
 
 
 @labelled("entropy.nmi_scores")
@@ -246,18 +261,19 @@ def nmi_scores(
     synth: torch.Tensor,  # [S, H, W] float or uint8 images in [0, 255]
     warped: torch.Tensor,  # [R, H, W]
     metric: str = "SUC",
+    n_bins: int = N_BINS,
     use_background: bool = True,
 ) -> torch.Tensor:
-    """Score every (render, warp) pair: [S, R] float32, over N_BINS = 256
-    gray bins (the reference's uint8 histograms).
+    """Score every (render, warp) pair: [S, R] float32, over `n_bins` gray
+    bins (at most 256, the reference's uint8 histograms).
 
     `use_background=False` is the reference's `nmi_prop_BG=false` compile
     option (NMI.cu:85): pairs where either image is 0 are excluded from all
     histograms (normalization stays at the full pixel count).
     """
     P = math.prod(synth.shape[1:])
-    sb = pack_bins(synth)
-    wb = pack_bins(warped)
+    sb = pack_bins(synth, n_bins)
+    wb = pack_bins(warped, n_bins)
     if not use_background:
         Hab, Ha, Hb = joint_entropy_grid(sb, wb, P, mask_zero=True)
         return _combine_pairwise(Ha, Hb, Hab, metric)

@@ -27,12 +27,9 @@ Where it differs from the JAX localizer, on purpose:
     (kernel B3 and the sampler on the card, their plain versions on the
     CPU), so there is no `force_mesh_raster`. A point model (render mode 4)
     goes through `render.render_translation_grid`.
-  * **256 bins only.** The port's `nmi_scores` takes no bin count, so the
-    constructor raises ValueError when `cfg.n_bins != 256`.
-  * **Two defaults no caller sets are left out**: `image_scale` (a fixed
-    downscale of every sweep; `cfg.coarse_scale` still runs the coarse
-    sweeps at reduced resolution) and the `search_scale` attribute (the
-    widening is passed per call, as every caller does).
+  * **At most 256 bins.** `cfg.n_bins` goes to `nmi_scores`, which packs
+    the gray levels in one byte: more than 256 bins raise ValueError (the
+    reference takes any count).
 
 Sign conventions: translation candidates move the camera center along its own
 axes, offset_cam = (i - (n-1)/2) * step per axis (x right, y down, z forward);
@@ -126,21 +123,24 @@ class NMILocalizer:
         camera: CameraConfig,
         model: Optional[render.RenderModel],
         log_fn: Optional[Callable[[str], None]] = None,
+        image_scale: int = 1,
         mesh: Optional[MeshModel] = None,
         device: str | torch.device = "cuda",
     ):
         """`model` drives the point-splat path (RENDER_POINT_CLOUD, mode 4);
         `mesh` selects the tiled triangle rasterizer (RENDER_TEXTURE, mode 1 —
         rendering.hpp:54-55) and wins when both are given. Either may be None,
-        not both."""
+        not both. `image_scale` > 1 runs every sweep on frames downscaled by
+        that factor: the caller passes frames of camera size // image_scale."""
         if model is None and mesh is None:
             raise ValueError("NMILocalizer needs a point model or a mesh")
-        if cfg.n_bins != histogram_nmi.N_BINS:
-            raise ValueError(f"the port scores with {histogram_nmi.N_BINS} gray bins, "
-                             f"got n_bins={cfg.n_bins}")
+        histogram_nmi.quantize_to_bins(torch.zeros(1), cfg.n_bins)  # raises above 256 bins
         self.device = kernels.resolve_device(device, "NMILocalizer")
         self.cfg = cfg
         self.camera = camera
+        # > 1 widens the next search's steps when a call passes no
+        # search_scale (the re-init latch's widening)
+        self.search_scale = 1.0
         self.mesh = mesh
         self.model = (None if model is None
                       else render.RenderModel(*(t.to(self.device) for t in model)))
@@ -150,9 +150,14 @@ class NMILocalizer:
         # Tracking.cc:1911-1948)
         self.debug_dir: Optional[str] = None
         self._debug_seq = 0
-        self.height = camera.height
-        self.width = camera.width
+        # NMI runs on (possibly downscaled) full frames; scale 1 = parity
+        self.scale = image_scale
+        self.height = camera.height // image_scale
+        self.width = camera.width // image_scale
         self.K = camera.K  # host float32
+        if image_scale != 1:
+            self.K = self.K.copy()
+            self.K[:2] /= image_scale
         self.initial_kernel = sk.SearchKernel(
             num_synth=cfg.grid.synth_num,
             num_warp=cfg.grid.warp_num,
@@ -210,7 +215,8 @@ class NMILocalizer:
             frame=frame, K=K,
             Tcw=torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device),
             offsets=offsets_host.to(self.device), angles=angles, height=h, width=w,
-            point_size=max(1, int(round(self.cfg.render_point_size / scale))), binned=binned,
+            point_size=max(1, int(round(self.cfg.render_point_size / (self.scale * scale)))),
+            binned=binned,
         )
 
     def render_sweep(self, sweep: Sweep) -> torch.Tensor:
@@ -231,6 +237,7 @@ class NMILocalizer:
     def score_sweep(self, synth: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
         """[S, R] scores on the device."""
         return histogram_nmi.nmi_scores(synth, warped, metric=self.cfg.metric,
+                                        n_bins=self.cfg.n_bins,
                                         use_background=self.cfg.use_background)
 
     # ------------------------------------------------------------- one round
@@ -269,7 +276,7 @@ class NMILocalizer:
         binned = None if self.mesh is None else raster.bin_mesh(
             self.mesh, np.asarray(Tcw), self.K, self.height, self.width, near, far,
             device=self.device)
-        point_size = max(1, int(round(self.cfg.render_point_size)))
+        point_size = max(1, int(round(self.cfg.render_point_size / self.scale)))
         for tag, s_idx, r_idx in (("best", s_best, r_best), ("middle", s_mid, r_mid)):
             if binned is not None:
                 synth = raster.render_mesh_grid(binned, T, self.K, offsets[s_idx:s_idx + 1],
@@ -323,7 +330,8 @@ class NMILocalizer:
         (RelocalizeWithNMIStrategy, Tracking.cc:1987-2179).
 
         `search_scale` widens the kernel steps for this call only (failure /
-        re-init widening); None and 1.0 leave them as sized."""
+        re-init widening); None takes the `search_scale` attribute. Callers
+        on other threads pass it rather than set the attribute."""
         cfg = self.cfg
         # --- kernel sizing (Tracking.cc:2001-2070)
         if dist_since[0] > 0.0:
@@ -334,7 +342,7 @@ class NMILocalizer:
             kernel = sk.initial_kernel_for_init(self.initial_kernel)
         else:
             kernel = dataclasses.replace(self.initial_kernel)
-        scale = 1.0 if search_scale is None else search_scale
+        scale = self.search_scale if search_scale is None else search_scale
         if scale != 1.0:
             kernel = dataclasses.replace(
                 kernel,

@@ -25,16 +25,20 @@ Where the port differs, or is likely to trip:
   singular vectors may differ in sign (and, at repeated values, in basis)
   between devices; every use here is invariant to the sign (the EPnP betas
   are solved for the vectors given, R = U D V^T takes both factors' signs).
-  On CUDA `lstsq` solves by QR only (`gels`), exact for the full-rank 6x3 and
-  6x5 systems; a rank-deficient sample gives another garbage hypothesis
-  than on the CPU, which loses the vote either way.
-* A hypothesis that samples a point which is not finite, or far enough to
-  overflow the float32 moments (a map point its BA left unconstrained),
-  returns a NaN pose and so counts no inlier, as in the JAX package, whose
-  linear algebra propagates the NaN; torch's batched solvers raise on such
-  input (CUDA's `eigh` stopped a relocalization on the card, ROADMAP C5), so
-  the hypothesis is solved with the point at the origin and its pose set to
-  NaN.
+  `lstsq` solves by QR (`gels`) on both devices (the only method CUDA
+  offers), exact for the full-rank 6x3 and 6x5 systems: the CPU's default
+  (`gelsy`) rounds by the memory alignment of its inputs, so a solve
+  differed from itself from run to run. A rank-deficient sample gives a garbage hypothesis,
+  which loses the vote.
+* A hypothesis that samples a point far enough to overflow the float32
+  moments (a map point its BA left unconstrained) returns a NaN pose and so
+  counts no inlier, as in the JAX package, whose linear algebra propagates
+  the NaN. A point that is not finite makes every hypothesis NaN, sampled or
+  not: the JAX package's weighted sums multiply it by a zero weight (inf * 0
+  is NaN), so its RANSAC finds no pose. Torch's batched solvers raise on
+  such input (CUDA's `eigh` stopped a relocalization on the card, ROADMAP
+  C5), so the hypothesis is solved with the point at the origin and its
+  pose set to NaN.
 * Precision: the 12x12 normal matrix M^T M is summed over the points in
   float64 and rounded (a float32 matmul would follow the TF32 flags); the
   small products are elementwise float32 (`se3.mm`, `se3.mv`); 3x3
@@ -158,7 +162,9 @@ def epnp_pose(K, pts_w, uv, weights):
     dev = pts_w.device
     wsum = torch.clamp(torch.sum(w, -1), min=1e-9)
     usable = (pts_w.abs() < _FAR).all(-1)  # finite and far from overflow
-    bad = ((w > 0) & ~usable).any(-1)  # hypotheses returned as NaN
+    # hypotheses returned as NaN: those that sample an unusable point, and
+    # all of them when a point is not finite (see the module docstring)
+    bad = ((w > 0) & ~usable).any(-1) | ~torch.isfinite(pts_w).all()
     pts_w = torch.where(usable[:, None], pts_w, 0.0)
 
     # ---- control points: centroid + PCA axes
@@ -193,7 +199,7 @@ def epnp_pose(K, pts_w, uv, weights):
         return torch.eye(4, dtype=pts_w.dtype, device=dev)[k]
 
     def lstsq(A, b):
-        return torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
+        return torch.linalg.lstsq(A, b[..., None], driver="gels").solution[..., 0]
 
     # ---- beta initializations (find_betas_approx_1/2/3, PnPsolver.cc:700-840)
     L11 = _dists(v[0])

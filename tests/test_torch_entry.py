@@ -151,8 +151,9 @@ def test_port_never_imports_jax():
     decisions counted by `tools/circuit_diag`), a saved
     trajectory, a two-view initialization, a rendered circuit sequence
     (`tools/replay_bench`), its descriptors (`tools/build_vocabulary`) and
-    an overlay (`viz/replay`) on the CPU, with every mapping, loop-closing,
-    system, replay, tool and visualization module imported,
+    an overlay (`viz/replay`), the sharded pose graph and BA on a world of
+    one rank on the CPU, with every mapping, loop-closing,
+    system, replay, tool, visualization and multi-rank module imported,
     leaves jax and the JAX package out of sys.modules, and no file of the
     port (nor chip_smoke.py) imports them."""
     code = (
@@ -251,6 +252,20 @@ def test_port_never_imports_jax():
         " ORBConfig(n_features=50, n_levels=2), 'cpu')) > 0\n"
         "viz.save_nmi_debug_overlay(np.zeros((4, 4)), np.ones((4, 4)),"
         " tempfile.mkdtemp() + '/o.png')\n"
+        "from orbslam2_nmi_torch.parallel import (distributed, mesh, sharded_ba, sharded_nmi,"
+        " sharded_pose_graph)\n"
+        "from orbslam2_nmi_torch.tools import scaling_bench\n"
+        "distributed.init_runtime(device='cpu')\n"
+        "m = mesh.make_mesh()\n"
+        "S1 = sharded_pose_graph.sharded_optimize_pose_graph(m, pose_graph.PoseGraphProblem("
+        "Scw=torch.eye(4).repeat(3, 1, 1), fixed=torch.tensor([True, False, False]),"
+        " valid=torch.ones(3, dtype=torch.bool), edge_i=torch.tensor([0, 1], dtype=torch.int32),"
+        " edge_j=torch.tensor([1, 2], dtype=torch.int32), edge_Sji=torch.eye(4).repeat(2, 1, 1),"
+        " edge_valid=torch.ones(2, dtype=torch.bool)), iters=2)\n"
+        "assert torch.equal(S1, S)\n"
+        "assert torch.equal(sharded_ba.sharded_bundle_adjust(m, prob, 1, 1).cam_Tcw, prob.cam_Tcw)\n"
+        "assert sharded_nmi.pad_to_multiple(torch.ones(3, 2), 2).shape == (4, 2)\n"
+        "distributed.shutdown()\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )

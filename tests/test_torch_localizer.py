@@ -334,9 +334,103 @@ def test_profile_tool_refuses_without_cuda(monkeypatch, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-def test_localizer_rejects_other_bin_counts():
-    with pytest.raises(ValueError, match="256"):
-        _port_loc(_cfg(n_bins=128), STRAT_CAM, model=make_world(10))
+@pytest.mark.parametrize("n_bins", [2, 64, 128, 256, 512])
+def test_localizer_rejects_other_bin_counts(n_bins):
+    """`NMIConfig.n_bins` up to 256 reaches the scores: one point-model grid
+    (60x80, 27 renders x the identity warp, grays in [28, 228], so that fewer
+    bins clamp most of them) equals the JAX localizer's within the
+    strategy's score bar; 512 bins are rejected (packed in one byte). The
+    identity warp keeps the warps' parity gap (0.0076 gray levels, which
+    moves pixels across bin edges) out of this test."""
+    pts, gray = make_world(40000, seed=7)
+    cfg = _cfg(n_bins=n_bins, warp_num=(1, 1, 1))
+    if n_bins > 256:
+        with pytest.raises(ValueError, match="one byte"):
+            _port_loc(cfg, STRAT_CAM, model=(pts, gray))
+        return
+    jmodel = jrender.RenderModel(jnp.asarray(pts), jnp.asarray(gray))
+    frame = np.asarray(jrender.render_pointcloud(
+        jmodel, jnp.eye(4), jnp.asarray(STRAT_CAM.K), 60, 80, 1.0, 30.0, 3))
+    ref = jloc.NMILocalizer(cfg, STRAT_CAM, jmodel)
+    port = _port_loc(cfg, STRAT_CAM, model=(pts, gray))
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = 0.3
+    want = ref.evaluate_grid(jnp.asarray(frame), T, ref.initial_kernel)
+    got = port.evaluate_grid(torch.from_numpy(frame), T, port.initial_kernel)
+    np.testing.assert_allclose(got, want, atol=STRATEGY_NMI_ATOL, rtol=0)
+    assert int(got.argmax()) == int(want.argmax())
+
+
+@pytest.mark.parametrize("case", ["point_grid", "mesh_strategy"])
+def test_image_scale_matches_reference(case):
+    """`image_scale=2`: the camera's height, width and K[:2] halved, the
+    splat's point size with them. One point-model grid (40x30 of the 80x60
+    camera, point size 2) within the strategy's score bar, and one mesh
+    strategy (128x24 of the 256x48 camera, the JAX localizer's Pallas
+    rasterizer in interpret mode) with the same iterations, cells and pose
+    within the mesh grid's score bar. The point grid's 27 warps carry the
+    warps' parity gap, which weighs more on 1,200 pixels: held to the mesh
+    grid's bar (the whole step's, test_torch_entry; measured 3.2e-4)."""
+    if case == "point_grid":
+        pts, gray = make_world(40000, seed=7)
+        jmodel = jrender.RenderModel(jnp.asarray(pts), jnp.asarray(gray))
+        K2 = STRAT_CAM.K.copy()
+        K2[:2] /= 2
+        frame = np.asarray(jrender.render_pointcloud(jmodel, jnp.eye(4), jnp.asarray(K2), 30, 40,
+                                                     1.0, 30.0, 2))
+        cfg = _cfg()
+        ref = jloc.NMILocalizer(cfg, STRAT_CAM, jmodel, image_scale=2)
+        port = tloc.NMILocalizer(convert.nmi_config_from_dict(dataclasses.asdict(cfg)),
+                                 convert.camera_config_from_dict(dataclasses.asdict(STRAT_CAM)),
+                                 convert.render_model_from_numpy(pts, gray, "cpu"),
+                                 image_scale=2, device="cpu")
+        assert (port.height, port.width) == (ref.height, ref.width) == (30, 40)
+        np.testing.assert_array_equal(port.K, np.asarray(ref.K))
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = 0.3
+        want = ref.evaluate_grid(jnp.asarray(frame), T, ref.initial_kernel)
+        got = port.evaluate_grid(torch.from_numpy(frame), T, port.initial_kernel)
+        np.testing.assert_allclose(got, want, atol=MESH_GRID_ATOL, rtol=0)
+        assert int(got.argmax()) == int(want.argmax())
+        return
+    mesh = height_field_mesh()
+    cfg = _cfg(synth_num=(3, 1, 1), warp_num=(1, 1, 1), synth_step=(0.4, 0.4, 0.4),
+               render_far=50.0, threshold=0.05, max_iteration_count=2)
+    ref = jloc.NMILocalizer(cfg, MESH_CAM, None, mesh=MeshModel(*mesh), force_mesh_raster=True,
+                            image_scale=2)
+    port = tloc.NMILocalizer(convert.nmi_config_from_dict(dataclasses.asdict(cfg)),
+                             convert.camera_config_from_dict(dataclasses.asdict(MESH_CAM)),
+                             None, mesh=TMeshModel(*mesh), image_scale=2, device="cpu")
+    b = traster.bin_mesh(TMeshModel(*mesh), np.eye(4, dtype=np.float32), port.K, 24, 128, 1.0,
+                         50.0, device="cpu")
+    frame = traster.render_mesh_grid(b, torch.eye(4), port.K, torch.zeros(1, 3), 1.0, 50.0)[0]
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = 0.4
+    logs_j, logs_t = [], []
+    ref.log, port.log = logs_j.append, logs_t.append
+    want = ref.relocalize_strategy(jnp.asarray(frame.numpy()), T)
+    got = port.relocalize_strategy(frame, T)
+    assert got.iterations == want.iterations
+    cells = [_CELLS.findall(line) for line in logs_t]
+    assert cells == [_CELLS.findall(line) for line in logs_j] and any(cells)
+    assert (got.relocalized, got.failed) == (want.relocalized, want.failed)
+    np.testing.assert_allclose(got.Tcw, want.Tcw, atol=STRATEGY_POSE_ATOL, rtol=0)
+    assert abs(got.nmi - want.nmi) <= MESH_GRID_ATOL + 1.1e-3
+    assert np.abs(got.Tcw[:3, 3]).max() < 1e-5  # snapped back to I
+
+
+def test_search_scale_attribute_widens_steps():
+    """With no `search_scale` in the call, the strategy takes the attribute
+    (the JAX localizer's default): the first sweep's steps are widened."""
+    pts, gray = make_world(40000, seed=7)
+    logs = []
+    port = _port_loc(_cfg(max_iteration_count=1), STRAT_CAM, model=(pts, gray),
+                     log_fn=logs.append)
+    assert port.search_scale == 1.0
+    port.search_scale = 2.0
+    frame = torch.zeros(60, 80)
+    port.relocalize_strategy(frame, np.eye(4, dtype=np.float32))
+    assert "steps=(0.6, 0.6, 0.6)" in logs[0], logs
 
 
 def test_mesh_is_never_rendered_by_the_splat(monkeypatch):

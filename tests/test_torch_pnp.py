@@ -18,7 +18,8 @@ Bars, measured on these inputs:
     128 hypotheses counted other inliers than the reference's); the vote and
     the polish agree.
 A hypothesis that samples a point far enough to overflow counts no inlier,
-and RANSAC's outcome with such hypotheses equals the reference's.
+and RANSAC's outcome with such hypotheses equals the reference's; with a
+point at inf or NaN neither package returns a pose.
 On the card (the `gpu` marker), `pnp_ransac` against the CPU's within 3e-6
 with the same inlier count, the gap recorded as a junit property (NVIDIA
 H100 80GB HBM3, 700.00 W: 4.8e-7), and without an error on hypotheses that
@@ -158,6 +159,22 @@ def test_non_finite_hypothesis_counts_no_inlier(far):
     np.testing.assert_allclose(out.Tcw.numpy(), np.asarray(ref.Tcw), atol=T_ATOL, rtol=0)
     np.testing.assert_array_equal(out.inliers.numpy(), np.asarray(ref.inliers))
     assert not out.inliers.numpy()[40]
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("nan")])
+def test_non_finite_point_gives_no_pose(value):
+    """RANSAC with one point at inf or NaN (ROADMAP C7): the JAX package's
+    weighted sums multiply it by zero weights (inf * 0 is NaN), so every
+    hypothesis is NaN and its RANSAC returns no pose; the port returns the
+    same on the same draws: 0 inliers, `ok` false, a NaN pose."""
+    key, K, pw, uv, _, out = _ransac_with_a_far_point(far=value)
+    n = len(pw)
+    ref = jp.pnp_ransac(key, jnp.asarray(K), jnp.asarray(pw), jnp.asarray(uv), jnp.ones(n),
+                        jnp.ones(n, bool))
+    assert int(ref.n_inliers) == 0 and not bool(ref.ok)
+    assert int(out.n_inliers) == 0 and not bool(out.ok)
+    np.testing.assert_array_equal(out.inliers.numpy(), np.asarray(ref.inliers))
+    assert np.isnan(out.Tcw.numpy()).any() and np.isnan(np.asarray(ref.Tcw)).any()
 
 
 @pytest.mark.gpu

@@ -388,3 +388,117 @@ def jax_map_from_fields(fields, jcfg):
         getattr(m, f)[...] = fields[f]
     m.n_keyframes, m.n_points = fields["n_keyframes"], fields["n_points"]
     return m
+
+
+# ------------------------------------------------------------ worlds of ranks
+
+
+def run_ranks(fn, n_ranks, *args, device="cpu", backend=None):
+    """`fn(*args)` on every rank of a fresh world of `n_ranks` spawned
+    processes (gloo on the CPU by default), every rank's result returned
+    (tensors as numpy). `fn` must live in an importable module, such as this
+    one: the ranks start from a fresh interpreter."""
+    from orbslam2_nmi_torch.parallel import distributed
+
+    return distributed.spawn_world(fn, n_ranks, *args, backend=backend, device=device)
+
+
+def sharding_height_field():
+    """tests/test_sharding.py's 30 x 30 height field (vertices, uvs, faces,
+    texture)."""
+    rng = np.random.default_rng(5)
+    n = 30
+    xs, ys = np.linspace(-15, 15, n), np.linspace(-10, 10, n)
+    X, Y = np.meshgrid(xs, ys, indexing="xy")
+    Z = 12.0 + 1.0 * np.sin(X * 0.7) * np.cos(Y * 0.9)
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], -1).astype(np.float32)
+    uvs = np.stack([(X.ravel() - xs[0]) / 30.0, (Y.ravel() - ys[0]) / 20.0], -1).astype(np.float32)
+    ii, jj = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    a = (ii * n + jj).ravel()
+    faces = np.concatenate([np.stack([a, a + 1, a + n + 1], -1),
+                            np.stack([a, a + n + 1, a + n], -1)]).astype(np.int32)
+    return verts, uvs, faces, rng.uniform(10, 245, (64, 64)).astype(np.float32)
+
+
+def sharding_mesh_problem():
+    """test_sharding.py's mesh NMI problem as numpy inputs of `sharding_rank`:
+    48x128, 8 renders x 4 warps, the frame rendered at I by the port."""
+    from orbslam2_nmi_torch.ops import homography, render
+
+    mesh = sharding_height_field()
+    K = np.array([[60.0, 0, 64], [0, 60.0, 24], [0, 0, 1]], np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    b = raster.bin_mesh(MeshModel(*mesh), eye, K, 48, 128, 1.0, 30.0,
+                        max_offset=(0.3, 0.3, 0.3), device="cpu")
+    frame = raster.render_mesh_grid(b, torch.eye(4), K, torch.zeros(1, 3), 1.0, 30.0)[0]
+    return dict(mesh=mesh, frame=frame.numpy(), Tcw=eye, K=K, hw=(48, 128),
+                near_far=(1.0, 30.0), max_offset=(0.3, 0.3, 0.3),
+                offsets=render.translation_grid_offsets((2, 2, 2), (0.3,) * 3, "cpu").numpy(),
+                angles=homography.rotation_grid_angles((2, 2, 1), (0.03,) * 3, "cpu").numpy())
+
+
+def sharding_rank(problems: dict) -> dict:
+    """One rank of the sharding tests: each of `problems` (numpy inputs, see
+    tests/test_torch_sharding.py) through its sharded function on this
+    rank's device; the outputs, and this rank's kernel launches."""
+    from orbslam2_nmi_torch import convert, kernels
+    from orbslam2_nmi_torch.parallel import distributed, mesh as mesh_lib
+    from orbslam2_nmi_torch.parallel import sharded_ba, sharded_nmi, sharded_pose_graph
+    from orbslam2_nmi_torch.solvers import pose_graph
+
+    dev = distributed.local_device()
+    mesh = mesh_lib.make_mesh()
+    kernels.reset_launches()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {}
+    for name, p in problems.items():
+        if name.startswith("pose_graph"):
+            prob = pose_graph.PoseGraphProblem(*(t(p[k]) for k in pose_graph.PoseGraphProblem._fields))
+            out[name] = sharded_pose_graph.sharded_optimize_pose_graph(mesh, prob, iters=p["iters"])
+        elif name.startswith("ba"):
+            prob = convert.ba_problem_from_numpy(p["fields"], dev)
+            out[name] = tuple(sharded_ba.sharded_bundle_adjust(mesh, prob))
+        elif name.startswith("nmi_splat"):
+            model = convert.render_model_from_numpy(p["points"], p["gray"], dev)
+            out[name] = sharded_nmi.sharded_nmi_search(
+                mesh, model, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), t(p["angles"]),
+                p["K"], *p["hw"], *p["near_far"])
+        elif name.startswith("nmi_mesh"):
+            binned = raster.bin_mesh(MeshModel(*p["mesh"]), p["Tcw"], p["K"], *p["hw"],
+                                     *p["near_far"], max_offset=p["max_offset"], device=dev)
+            out[name] = sharded_nmi.sharded_nmi_search_mesh(
+                mesh, binned, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), t(p["angles"]),
+                p["K"], *p["near_far"])
+        else:
+            raise ValueError(f"unknown problem {name}")
+    out["launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def rank_that_fails(bad_rank: int) -> int:
+    """Raises on rank `bad_rank`; every other rank waits in a barrier that
+    the failed rank never reaches."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == bad_rank:
+        raise ValueError(f"rank {bad_rank} fails on purpose")
+    dist.barrier()
+    return dist.get_rank()
+
+
+def mesh_2d_rank() -> dict:
+    """A (pose, obs) mesh over a world of 4: this rank's coordinates and the
+    sum of the world ranks along each axis."""
+    import torch.distributed as dist
+
+    from orbslam2_nmi_torch.parallel import mesh as mesh_lib
+
+    m = mesh_lib.make_mesh_2d(2, 2)
+    out = {"coords": (m.get_local_rank(mesh_lib.POSE_AXIS), m.get_local_rank(mesh_lib.OBS_AXIS))}
+    for axis in m.axis_names:
+        x = torch.tensor([float(dist.get_rank())], device=m.device)
+        dist.all_reduce(x, group=m.get_group(axis))
+        out[axis] = float(x[0])
+        out[axis + "_gathered"] = mesh_lib.all_gather_cat(
+            torch.tensor([dist.get_rank()], device=m.device), m, axis).tolist()
+    return out
