@@ -11,8 +11,13 @@ Run from the root of a checkout. It
      kernel, plain version and (where one exists) one PyTorch library call,
      or a near relative of one (B1 and B2: `torch.bincount` of the histograms);
      holds B1, B2 and B3 against their plain versions on adversarial inputs
-     too (`orbslam2_nmi_torch/kernel_cases.py`); times B2's C entry point
-     alone beside its wrapper, so the wrapper's host time shows;
+     too (`orbslam2_nmi_torch/kernel_cases.py`); holds B3's gray epilogue
+     (`render_gray`: B3 with the texture sampler B4/B5 fused) exactly against
+     the sampler's plain version on B3's keys epilogue's own outputs, and
+     against the all-plain composition, on the entry's windowed binning, a
+     whole-texture binning, a non-zero background and the adversarial cases;
+     times B2's C entry point alone beside its wrapper, so the wrapper's host
+     time shows;
   4. drives the main path, `orbslam2_nmi_torch.entry.entry()` at 960x540 with
      27 renders x 27 warps, with the launch counts set to 0 just before and
      read just after; checks the scores against an all-plain run on the card
@@ -33,12 +38,12 @@ Run from the root of a checkout. It
      all-plain checks;
   7. drives the per-frame tracking front-end (`entry.tracking_entry()`,
      960x540, 2,000 ORB features, 2,048 local-map candidates), seeded from
-     ground truth: renders frames 6-55 of the 520-frame circuit (B3 and the
-     sampler, launch counts set to 0 just before and read after the chain),
+     ground truth: renders frames 6-55 of the 520-frame circuit
+     (`render_gray`, launch counts set to 0 just before and read after the chain),
      runs the step over frames 8-55 with each frame's carry feeding the next
      and the candidates rebuilt at the last estimate; checks every frame
      against the tracking gate and the camera-center error against ground
-     truth; holds B3 and the sampler against their plain versions on frame
+     truth; holds B3 and `render_gray` against their plain versions on frame
      8's binning of the circuit's terrain; holds eager against CUDA-graph
      replay bit for bit on three frames, runs a step under
      `set_sync_debug_mode("error")`, runs one with TF32 turned on, holds the
@@ -47,7 +52,7 @@ Run from the root of a checkout. It
      one frame and its host binning;
   8. drives mapping and NMI initialization (`entry.mapping_entry()`, the
      full-circuit replay configuration at 960x540): checks that the native
-     map core is live; renders frames 0 and 8-68 (B3 and the sampler);
+     map core is live; renders frames 0 and 8-68 (`render_gray`);
      latches frames 0 and 8 by NMI from seeds one translation step off,
      holding the first grid of each shape in each latch against an
      all-plain run and counting one launch of each kernel a grid; checks
@@ -67,8 +72,8 @@ Run from the root of a checkout. It
   9. on that session, place recognition and loop closing: relocalizes frame
      500 against the map by BoW and PnP (error to truth under 0.1 m; the
      card against the CPU on the same matches and samples); adds the drifted
-     revisit arc (`entry.add_revisit_arc`, frames 476-518 rendered by B3 and
-     the sampler, launch counts set to 0 just before and read after); runs
+     revisit arc (`entry.add_revisit_arc`, frames 476-518 rendered by
+     `render_gray`, launch counts set to 0 just before and read after); runs
      the loop closer on each arc keyframe with the reference's consistency
      of 3 and waits for the global BA; checks that exactly one loop closed,
      against a keyframe of frames 0-68, that the arc's error fell below half,
@@ -106,13 +111,14 @@ Run from the root of a checkout. It
      sweep on the reference bench's scene (71,442 faces, a 512x512 texture,
      27 x 27; medians and spreads by CUDA events, evaluations/s, one launch
      of each kernel, the scores within 1e-5 of an all-plain run with the
-     same argmax, B3's and the sampler's times beside their byte bounds);
+     same argmax, `render_gray`'s and B3's keys epilogue's times beside
+     their byte bounds);
      the domain-gap replay of the 160-frame prefix of the seed-1 circuit
      (`run_replay`: threshold 0.1, pipelined, async mapping and async NMI;
      at least 148 tracked, unaligned ATE-RMSE at most 0.0625 m), the same
      prefix by the synchronous system (the same bars); frames 60-159
      profiled by `device_budget.run_windowed` ("other" under 10 % of the
-     device time, B3 and the sampler in nmi_render, B1 and B2 in nmi_score,
+     device time, `render_gray` in nmi_render, B1 and B2 in nmi_score,
      the replayed step in tracking_fused_step, the idle share); the async
      replay's last frame drawn, its map plotted, and the debug overlays of
      one `relocalize_strategy` named by each sweep's argmax;
@@ -125,7 +131,7 @@ Run from the root of a checkout. It
      (125 x 27 on 2,211,835 points), a local BA's (C, P) = (8, 2048) and an
      essential graph at V 424; every rank's result equal, each held against
      the unsharded call on the card (`MC_*` bars), each rank's launches of
-     B1, B2, B3 and the sampler once a mesh grid; the sharded and the
+     B1, B2 and `render_gray` once a mesh grid; the sharded and the
      unsharded call timed in turns in the one-rank world; then
      `entry.dryrun_multichip(2)` on two gloo ranks;
  13. prints a JSON line of the step times, one of the localizer's, one of the
@@ -149,7 +155,7 @@ import time
 ENTROPY_ATOL = 1e-5  # exact integer histograms; only the f64 sum order and logf differ
 RASTER_MISMATCH_FRAC = 1e-4  # hit mask, u, v: same f32 operations, so expected bit for bit
 RASTER_DEPTH_LEVELS = 2  # depth bits (key >> 11) where both hit
-SAMPLER_ATOL = 0.0  # no FMA contraction, bf16 rounding copied: bit for bit
+SAMPLER_ATOL = 0.0  # render_gray vs the sampler's plain version on the same z-buffer: bit for bit
 SCORE_ATOL = 1e-5  # [S, R] scores, kernels vs all-plain
 
 # The tracking phase: frames 8-55 of the 520-frame circuit (frames 6 and 7 seed),
@@ -277,6 +283,31 @@ def _raster_tests(raster, b, poses, K, near):
     return total
 
 
+def _render_gray_bytes(b, poses, n_out):
+    """The bytes `render_gray` must move: the triangle slab, the poses and
+    the texture read once, `n_out` gray floats written once."""
+    return (b.tri_data.numel() + poses.numel() + b.texture.numel() + n_out) * 4
+
+
+def render_gray_check(check, args, what):
+    """Hold `raster.render_gray(*args)` to its two bars
+    (`kernel_cases.render_gray_gaps`): equal within SAMPLER_ATOL to the
+    sampler's plain version on B3's keys epilogue's own outputs, and equal to
+    the all-plain composition on all but RASTER_MISMATCH_FRAC of pixels.
+    Returns the gaps."""
+    from orbslam2_nmi_torch import kernel_cases
+
+    g = kernel_cases.render_gray_gaps(args)
+    print(f"  {what}: render_gray against the plain sampling of the keys epilogue's outputs: "
+          f"max |diff| {g['exact']}; against all-plain: pixels differing {g['mismatch']}, "
+          f"max |diff| {g['err']}")
+    check(g["exact"] <= SAMPLER_ATOL, f"{what}: render_gray within {SAMPLER_ATOL} of the plain "
+          "sampling of the keys epilogue's outputs")
+    check(g["mismatch"] <= RASTER_MISMATCH_FRAC, f"{what}: render_gray equals the all-plain "
+          f"composition on all but {RASTER_MISMATCH_FRAC} of pixels")
+    return g
+
+
 def _plain_nmi(synth, warped, use_background):
     """[S, R] SUC scores of renders x warps with B1 and B2 replaced by their
     plain versions."""
@@ -296,12 +327,10 @@ def _all_plain_scores(b, Tcw, K, offsets, near, warped, use_background):
     every kernel replaced by its plain version (on the inputs' device)."""
     from orbslam2_nmi_torch.ops import raster
 
-    S = offsets.shape[0]
-    k, u, v = raster.rasterize_keys_plain(
+    img = raster.render_gray_plain(
         b.tri_data, raster.grid_poses(Tcw, offsets), b.capacity, float(K[0, 0]),
-        float(K[1, 1]), float(K[0, 2]), float(K[1, 2]), near, b.tiles_x)
-    g = raster.sample_texture_plain(k, u, v, b.texture, *b.tex_hw, 0.0)
-    img = raster._untile(g, S, b.tiles_y, b.tiles_x, b.height, b.width)
+        float(K[1, 1]), float(K[0, 2]), float(K[1, 2]), near, b.tiles_x, b.texture,
+        *b.tex_hw, 0.0, b.height, b.width)
     return _plain_nmi(img, warped, use_background)
 
 
@@ -415,7 +444,7 @@ def localizer_phases(dev, smi, cuda_ms, check):
         check(n == len(out.previous_poses) and n > 0, f"{name}: one pose kept a grid")
         use_bg = loc.cfg.use_background
         want = {"joint_entropy": n, "marginal_entropy": n if use_bg else 0,
-                "rasterize_keys": n if mesh else 0, "sample_texture": n if mesh else 0}
+                "rasterize_keys": 0, "render_gray": n if mesh else 0}
         check(launches == want, f"{name}: launches {want}, one a grid evaluation")
         del loc.evaluate_grid  # the recorder
         ms, runs = wall_ms(lambda: loc.relocalize_strategy(frame, T.copy(), **kw))
@@ -619,15 +648,15 @@ def tracking_phase(dev, smi, check, check_raster):
         T_last = u.Tcw
     launches = dict(kernels.LAUNCHES)
     print(f"  launches (rendering and the chain): {launches}")
-    check(launches["rasterize_keys"] == n + 2 and launches["sample_texture"] == n + 2,
-          f"B3 and the sampler launched once a rendered frame ({n + 2})")
+    check(launches["render_gray"] == n + 2 and launches["rasterize_keys"] == 0,
+          f"render_gray launched once a rendered frame ({n + 2}), B3's keys epilogue never")
     errs = np.array(rec["err_m"])
     print(f"  camera-center error over {n} frames: median {np.median(errs):.5f} m, "
           f"max {errs.max():.5f} m")
     check(errs.max() < TRACK_ERR_M, f"camera-center error under {TRACK_ERR_M} m on every frame")
     check(step._graph is not None, "the step was captured in a CUDA graph on its first call")
 
-    # --- B3 and the sampler against their plain versions at the circuit's binning
+    # --- B3 and render_gray against their plain versions at the circuit's binning
     world = SyntheticMeshWorld.generate(seed=0)
     W, H = frames.shape[2], frames.shape[1]
     K = world.camera_K(W, H)
@@ -645,12 +674,12 @@ def tracking_phase(dev, smi, check, check_raster):
                  f"tiles {bt.tiles_y}x{bt.tiles_x}, capacity {bt.capacity}, overflow "
                  f"{bt.overflow}), {keys.numel()} pixels")
     th, tw = bt.tex_hw
-    err_s = (raster.sample_texture(keys, uu, vv, bt.texture, th, tw, 0.0)
-             - raster.sample_texture_plain(keys, uu, vv, bt.texture, th, tw, 0.0)).abs().max().item()
-    check(err_s <= SAMPLER_ATOL, f"frame {TRACK_FIRST}'s binning, sampler ({th}x{tw} texture): "
-          f"max |kernel - plain| {err_s} <= {SAMPLER_ATOL}")
+    g = render_gray_check(check, (*rargs, bt.texture, th, tw, 0.0, H, W),
+                          f"frame {TRACK_FIRST}'s binning ({th}x{tw} texture)")
+    err_s = g["exact"]
     raster_check = dict(capacity=bt.capacity, tiles=[bt.tiles_y, bt.tiles_x],
-                        raster_err=d_raster["err"], sampler_err=err_s,
+                        raster_err=d_raster["err"], render_gray_err=err_s,
+                        render_gray_mismatch=g["mismatch"],
                         mismatch={k: d_raster[k] for k in ("mask", "u", "v", "depth")})
     del keys, uu, vv
 
@@ -748,7 +777,7 @@ def tracking_phase(dev, smi, check, check_raster):
     print(f"  host ms a frame: candidate build {mean['cand_ms']:.3f}, upload "
           f"{mean['upload_ms']:.3f}, readback {mean['readback_ms']:.3f}, unpack_step "
           f"{mean['unpack_ms']:.3f}  [{smi}]")
-    print(f"  rendering one frame (render_frames: host binning, upload, B3, sampler), ms: mean "
+    print(f"  rendering one frame (render_frames: host binning, upload, render_gray), ms: mean "
           f"{render_ms:.3f} (runs {[round(t, 3) for t in render_runs]}); its host binning "
           f"alone (bin_mesh): mean {bin_ms:.3f} (runs {[round(t, 3) for t in bin_runs]}); "
           f"each after 1 warm-up  [{smi}]")
@@ -817,8 +846,8 @@ def mapping_phase(dev, smi, check, cuda_ms):
     check((cfg.camera.width, cfg.camera.height, cfg.orb.n_features, session.step.n_cand,
            tcfg.max_keyframes, tcfg.max_map_points, tcfg.max_features)
           == (960, 540, 2000, 2048, 512, 131072, 2048), "the replay's configuration, uncut")
-    check(launches["rasterize_keys"] == n_render and launches["sample_texture"] == n_render,
-          f"B3 and the sampler launched once a rendered frame ({n_render})")
+    check(launches["render_gray"] == n_render and launches["rasterize_keys"] == 0,
+          f"render_gray launched once a rendered frame ({n_render}), B3's keys epilogue never")
 
     # --- NMI initialization: two latches, each first grid of a shape all-plain ----
     loc = session.localizer
@@ -857,9 +886,10 @@ def mapping_phase(dev, smi, check, cuda_ms):
     n = len(grids)
     print(f"  initialization launches: {launches}, {n} grid evaluations")
     rec["init_launches"] = launches
-    check(all(v > 0 for v in launches.values()), "every kernel launched inside the latches")
-    check(launches == {"joint_entropy": n, "marginal_entropy": n, "rasterize_keys": n,
-                       "sample_texture": n}, "each kernel launched once a grid evaluation")
+    check(n > 0 and launches == {"joint_entropy": n, "marginal_entropy": n, "rasterize_keys": 0,
+                                 "render_gray": n},
+          "B1, B2 and render_gray launched once a grid evaluation inside the latches, B3's "
+          "keys epilogue never")
     check(init.ok, f"the map was initialized ({init.n_matches} matches, {init.n_points} points)")
     latched = [f.Tcw.copy() for f in session.init_frames]
     rec["latches"] = []
@@ -1083,20 +1113,24 @@ def mapping_phase(dev, smi, check, cuda_ms):
     K = sw.K
     rargs = (b.tri_data, poses, b.capacity, float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
              float(K[1, 2]), cfg.nmi.render_near, b.tiles_x)
-    keys, uu, vv = raster.rasterize_keys(*rargs)
     synth = loc.render_sweep(sw)
     warped = loc.warp_sweep(sw)
     S, R, P = synth.shape[0], warped.shape[0], sw.height * sw.width
     sb, wb = hn.pack_bins(synth), hn.pack_bins(warped)
     th, tw = b.tex_hw
-    n_pix = keys.numel()
+    n_pix = S * b.tri_data.shape[0] * raster.TILE_H * raster.TILE_W
+    n_tests = _raster_tests(raster, b, poses, K, cfg.nmi.render_near)
+    gargs = (*rargs, b.texture, th, tw, 0.0, b.height, b.width)
+    rec["latch_render_gray"] = render_gray_check(
+        check, gargs, f"the first latch's coarse sweep ({S} renders at {b.width}x{b.height}, "
+        f"tiles {b.tiles_y}x{b.tiles_x})")
     shapes = {}
     for name, fn, nb, no in (
             ("rasterize_keys", lambda: raster.rasterize_keys(*rargs),
-             b.tri_data.numel() * 4 + poses.numel() * 4 + 3 * n_pix * 4,
-             _raster_tests(raster, b, poses, K, cfg.nmi.render_near) * 10),
-            ("sample_texture", lambda: raster.sample_texture(keys, uu, vv, b.texture, th, tw, 0.0),
-             16 * n_pix + b.texture.numel() * 4, 20 * n_pix),
+             b.tri_data.numel() * 4 + poses.numel() * 4 + 3 * n_pix * 4, n_tests * 10),
+            ("render_gray", lambda: raster.render_gray(*gargs),
+             _render_gray_bytes(b, poses, S * b.height * b.width),
+             n_tests * 10 + 20 * S * b.height * b.width),
             ("marginal_entropy", lambda: hn.marginal_entropy_sets(sb, wb, P),
              (S + R) * P + (S + R) * 4, (S + R) * P),
             ("joint_entropy", lambda: hn.joint_entropy_grid(sb, wb, P),
@@ -1206,8 +1240,8 @@ def loop_phase(dev, smi, check, session):
     print(f"  revisit arc: frames {[i for i, _ in arc]} as keyframes {[k for _, k in arc]} with "
           f"drift {ARC_DRIFT_TEXT}; {arc_s:.2f} s (rendering, features, points); launches "
           f"{launches}")
-    check(launches["rasterize_keys"] == len(arc) and launches["sample_texture"] == len(arc),
-          "B3 and the sampler launched once an arc frame")
+    check(launches["render_gray"] == len(arc) and launches["rasterize_keys"] == 0,
+          "render_gray launched once an arc frame, B3's keys epilogue never")
 
     def arc_errors():
         with m.lock:
@@ -1514,8 +1548,8 @@ def system_phase(dev, smi, check):
     cfg, m, tr = system.cfg, system.map, system.tracker
     print(f"  {n} frames rendered on the card in {rec['render_s']:.1f} s ({tuple(frames.shape)} "
           f"uint8, {frames.numel() / 2**20:.0f} MiB; launches {launches})  [{smi}]")
-    check(n == 520 and launches["rasterize_keys"] == n and launches["sample_texture"] == n,
-          "B3 and the sampler launched once a rendered frame")
+    check(n == 520 and launches["render_gray"] == n and launches["rasterize_keys"] == 0,
+          "render_gray launched once a rendered frame, B3's keys epilogue never")
     check((cfg.camera.width, cfg.camera.height, cfg.orb.n_features, cfg.nmi.offset,
            cfg.nmi.threshold, cfg.nmi.max_iteration_count, cfg.nmi.coarse_scale,
            cfg.nmi.reloc_frequency, cfg.tracking.max_frames, cfg.tracking.max_keyframes)
@@ -1575,8 +1609,10 @@ def system_phase(dev, smi, check):
     vr = system.vocab_record
     nw = system.nmi_worker
     print(f"  launches over the circuit's drive: {launches}")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the system path (latches and anchors: B1-B4)")
+    check(all(launches[k] > 0 for k in ("joint_entropy", "marginal_entropy", "render_gray"))
+          and launches["rasterize_keys"] == 0,
+          "B1, B2 and render_gray launched on the system path (latches and anchors), B3's "
+          "keys epilogue never")
     print(f"  frames tracked {len(tracked)} of {n} (reference {SYS_REF['tracked']}); keyframes "
           f"created {created} (reference {SYS_REF['keyframes_created']}), surviving {len(vk)} "
           f"(reference {SYS_REF['keyframes_surviving']}); map points {n_points}; NMI anchors "
@@ -1862,8 +1898,9 @@ def tools_phase(dev, smi, check, cuda_ms):
         + f"; {res['evals_per_s']:.1f} evaluations/s ({ratio:.3f} x the 1458/s requirement); "
         f"the 27-candidate point splat {t['splat']['median_ms']:.3f} ms  [{smi}]")
     print(f"  launches over one sweep: {res['launches']}")
-    check(all(v == 1 for v in res["launches"].values()),
-          "each kernel launched once over the bench sweep")
+    check(res["launches"] == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
+                              "render_gray": 1},
+          "B1, B2 and render_gray launched once over the bench sweep, B3's keys epilogue never")
     warped = res["warped"]
     plain = _all_plain_scores(b, inp.Tcw, inp.K, inp.offsets, bench.NEAR, warped, True)
     d = (res["scores"] - plain).abs().max().item()
@@ -1875,28 +1912,28 @@ def tools_phase(dev, smi, check, cuda_ms):
     K = inp.K
     rargs = (b.tri_data, poses, b.capacity, float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
              float(K[1, 2]), bench.NEAR, b.tiles_x)
-    keys, uu, vv = raster.rasterize_keys(*rargs)
-    n_pix = keys.numel()
+    S = poses.shape[0]
+    n_pix = S * b.tri_data.shape[0] * raster.TILE_H * raster.TILE_W
+    n_img = S * b.height * b.width
     n_tests = _raster_tests(raster, b, poses, K, bench.NEAR)
     b3_bound, b3_by = _bound_ms(b.tri_data.numel() * 4 + poses.numel() * 4 + 3 * n_pix * 4,
                                 n_tests * 10)
-    th, tw = b.tex_hw
-    s_bound, s_by = _bound_ms(16 * n_pix + b.texture.numel() * 4, 20 * n_pix)
+    gargs = (*rargs, b.texture, *b.tex_hw, 0.0, b.height, b.width)
+    g_bound, g_by = _bound_ms(_render_gray_bytes(b, poses, n_img), n_tests * 10 + 20 * n_img)
     kernel_ms = dict(
         rasterize_keys=dict(ms=cuda_ms(lambda: raster.rasterize_keys(*rargs)),
                             bound_ms=b3_bound, bound_by=b3_by),
-        sample_texture=dict(ms=cuda_ms(lambda: raster.sample_texture(keys, uu, vv, b.texture,
-                                                                      th, tw, 0.0)),
-                            bound_ms=s_bound, bound_by=s_by))
-    print(f"  at the bench's shapes ({n_tests:.4e} coverage tests, {n_pix} tiled pixels): B3 "
-          f"{kernel_ms['rasterize_keys']['ms']:.4f} ms (bound {b3_bound:.4f} ms by {b3_by}), "
-          f"the sampler {kernel_ms['sample_texture']['ms']:.4f} ms (bound {s_bound:.4f} ms by "
-          f"{s_by})  [{smi}]")
+        render_gray=dict(ms=cuda_ms(lambda: raster.render_gray(*gargs)),
+                         bound_ms=g_bound, bound_by=g_by))
+    print(f"  at the bench's shapes ({n_tests:.4e} coverage tests, {n_pix} tiled pixels): "
+          f"render_gray {kernel_ms['render_gray']['ms']:.4f} ms (bound {g_bound:.4f} ms by "
+          f"{g_by}), B3's keys epilogue {kernel_ms['rasterize_keys']['ms']:.4f} ms (bound "
+          f"{b3_bound:.4f} ms by {b3_by})  [{smi}]")
     rec["sweep"] = dict(times={k: {m: v[m] for m in ("median_ms", "min_ms", "max_ms")}
                                for k, v in t.items()},
                         evals_per_s=res["evals_per_s"], launches=res["launches"],
                         scores_gap=d, kernels=kernel_ms)
-    del res, keys, uu, vv, warped, plain, inp
+    del res, warped, plain, inp
 
     print(f"tools: the domain-gap replay (tools/replay_bench.py), the {TOOLS_FRAMES}-frame "
           "prefix of the seed-1 520-frame circuit, threshold 0.1, pipelined, async mapping "
@@ -1951,8 +1988,10 @@ def tools_phase(dev, smi, check, cuda_ms):
     check(out["n_tracked"] >= TOOLS_MIN_TRACKED and out["ate_rmse"] <= TOOLS_ATE_M,
           f"domain-gap prefix: at least {TOOLS_MIN_TRACKED} of {TOOLS_FRAMES} frames tracked, "
           f"unaligned ATE-RMSE {out['ate_rmse']:.4f} <= {TOOLS_ATE_M} m")
-    check(all(v > 0 for v in launches.values()),
-          "every kernel launched on the replay's path (latches, anchors, the overlays)")
+    check(all(launches[k] > 0 for k in ("joint_entropy", "marginal_entropy", "render_gray"))
+          and launches["rasterize_keys"] == 0,
+          "B1, B2 and render_gray launched on the replay's path (latches, anchors, the "
+          "overlays), B3's keys epilogue never")
     t0 = time.perf_counter()
     sync = replay_bench.run_replay(world, frames, n_total=520, pipelined=True, threshold=0.1,
                                    async_mapping=False, device=dev)
@@ -1991,11 +2030,12 @@ def tools_phase(dev, smi, check, cuda_ms):
           f"'other' {other} ms under {TOOLS_OTHER_SHARE:.0%} of the traced {total_ms:.1f} ms")
     where = {k: {device_budget.classify(r) for r in v} for k, v in bud["cuda_kernels_ms"].items()}
     print(f"  the hand-written kernels' buckets: {where}")
-    check(where.get("rasterize_keys_kernel") == {"nmi_render"}
-          and where.get("sample_texture_kernel") == {"nmi_render"}
+    check(where.get("render_gray_kernel") == {"nmi_render"}
+          and "rasterize_keys_kernel" not in where
           and where.get("joint_entropy_kernel") == {"nmi_score"}
           and where.get("marginal_entropy_kernel") == {"nmi_score"},
-          "B3 and the sampler land in nmi_render, B1 and B2 in nmi_score")
+          "render_gray lands in nmi_render, B1 and B2 in nmi_score; B3's keys epilogue "
+          "does not run")
     fused = bud["modules_ms"].get("fused_step", 0.0)
     check(bud["by_subsystem_ms"].get("tracking_fused_step", 0.0) > 0 and fused > 0,
           f"the replayed step lands in tracking_fused_step ({fused:.1f} ms in 'fused_step')")
@@ -2259,13 +2299,14 @@ def multichip_phase(smi, check, device="cuda"):
             launches = [o[name]["launches"] for o in outs]
             print(f"    {name}: launches per rank {launches}")
             if name == "nmi_mesh":
-                check(all(ln == {k: 1 for k in kernels.LAUNCHES} for ln in launches),
-                      f"{name}: each rank launched B1, B2, B3 and the sampler once for the grid")
+                check(all(ln == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
+                                 "render_gray": 1} for ln in launches),
+                      f"{name}: each rank launched B1, B2 and render_gray once for the grid")
             elif name == "nmi_splat":
                 check(all(ln["joint_entropy"] == 1 and ln["marginal_entropy"] == 1
-                          and ln["rasterize_keys"] == 0 and ln["sample_texture"] == 0
+                          and ln["rasterize_keys"] == 0 and ln["render_gray"] == 0
                           for ln in launches),
-                      f"{name}: each rank launched B1 and B2 once, B3 and the sampler never")
+                      f"{name}: each rank launched B1 and B2 once, B3 never")
             if name.startswith("nmi"):
                 d = float(np.abs(got - ref[name]).max())
                 am, rm = int(np.argmax(got)), int(np.argmax(ref[name]))
@@ -2325,6 +2366,7 @@ def main() -> int:
     from orbslam2_nmi_torch import kernel_cases
     from orbslam2_nmi_torch.ops import histogram_nmi as hn
     from orbslam2_nmi_torch.ops import raster
+    from orbslam2_nmi_torch.tools import render_stage
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2338,6 +2380,9 @@ def main() -> int:
     so = kernels.build(verbose=True)
     print(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}")
     kernels.lib()
+    raster_res = render_stage.raster_resources(kernels)
+    print(f"raster kernels (registers a thread, static shared bytes a block, resident blocks "
+          f"an SM): {raster_res}")
 
     dev = torch.device("cuda")
 
@@ -2400,6 +2445,7 @@ def main() -> int:
 
     check_raster(d, f"main path, {n_pix} pixels")
     err = d["err"]
+    del keys, uu, vv
     print("kernel rasterize_keys (B3), adversarial inputs")
     for name in kernel_cases.RASTER_CASES:
         cargs = kernel_cases.raster_case(name, dev)
@@ -2420,44 +2466,51 @@ def main() -> int:
     print(f"  {n_tests:.4e} (pixel, triangle) tests inside the triangles' bounding boxes; "
           f"bound {bound:.4f} ms by {by}")
 
-    # --- sampler (B4 and B5) ---------------------------------------------------
+    # --- render_gray: B3's gray epilogue, the sampler (B4 and B5) fused ---------
     # The reference samples the entry's binning through per-tile windows (B5)
-    # and a binning with a 128x128 texture whole (B4). The port's one sampler
-    # reads the whole texture in both, so its two checks differ only in the
-    # texture's size.
-    print("kernel sample_texture (B4/B5), windowed binning")
+    # and a binning with a 128x128 texture whole (B4). The port's epilogue
+    # reads the whole texture in both, so its checks differ in the texture's
+    # size; then a non-zero background and the adversarial cases, whose
+    # images crop the last tile row and column.
     th, tw = b.tex_hw
+    gargs = (*rargs, b.texture, th, tw, 0.0, b.height, b.width)
     check(win > 0, f"the reference samples the entry's binning through windows (side {win})")
-    gray = raster.sample_texture(keys, uu, vv, b.texture, th, tw, 0.0)
-    pgray = raster.sample_texture_plain(keys, uu, vv, b.texture, th, tw, 0.0)
-    err_s = (gray - pgray).abs().max().item()
-    check(err_s <= SAMPLER_ATOL, f"windowed binning: max |kernel - plain| {err_s} <= {SAMPLER_ATOL}")
-    print("kernel sample_texture (B4/B5), whole-texture binning")
+    err_g = render_gray_check(check, gargs, "render_gray (B3, B4/B5), windowed binning")["exact"]
     m2 = entry_mod._toy_mesh()
     m2.texture_gray = m2.texture_gray[:128, :128]
     b2 = raster.bin_mesh(m2, np.eye(4, dtype=np.float32), K, b.height, b.width, entry_mod.NEAR,
                          entry_mod.FAR, max_offset=entry_mod.SYNTH_STEP, device=dev)
     check(texture_window(b2) == 0, "the reference samples the second binning's texture whole")
-    k2, u2, v2 = raster.rasterize_keys(b2.tri_data, poses, b2.capacity, *rargs[3:])
-    g2 = raster.sample_texture(k2, u2, v2, b2.texture, *b2.tex_hw, 0.0)
-    err_w = (g2 - raster.sample_texture_plain(k2, u2, v2, b2.texture, *b2.tex_hw, 0.0)).abs().max().item()
-    check(err_w <= SAMPLER_ATOL, f"whole-texture binning: max |kernel - plain| {err_w} <= {SAMPLER_ATOL}")
-    grid = torch.stack([uu * 2 - 1, (1 - vv) * 2 - 1], -1).reshape(1, -1, raster.TILE_W, 2)
-    tex4 = b.texture[:th, :tw][None, None]
-    bound, by = _bound_ms(16 * n_pix + b.texture.numel() * 4, 20 * n_pix)
-    rows["sample_texture"] = dict(
-        source="orbslam2_nmi_torch/csrc/sample_texture.cu",
-        replaces="orbslam2_nmi_tpu/ops/raster.py:722 (B4) and :693 (B5)",
-        max_abs_err=max(err_s, err_w),
-        ms=cuda_ms(lambda: raster.sample_texture(keys, uu, vv, b.texture, th, tw, 0.0)),
-        plain_ms=cuda_ms(lambda: raster.sample_texture_plain(keys, uu, vv, b.texture, th, tw, 0.0)),
-        bound_ms=bound, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.nn.functional.grid_sample(
-            tex4, grid, mode="bilinear", align_corners=True)))
-    del k2, u2, v2, g2, pgray
+    g = render_gray_check(check, (b2.tri_data, poses, b2.capacity, *rargs[3:], b2.texture,
+                                  *b2.tex_hw, 0.0, b2.height, b2.width),
+                          "render_gray, whole-texture binning")
+    err_g = max(err_g, g["exact"])
+    g = render_gray_check(check, (*gargs[:-3], 23.5, b.height, b.width),
+                          "render_gray, windowed binning, background 23.5")
+    err_g = max(err_g, g["exact"])
+    for name in kernel_cases.RASTER_CASES:
+        cargs = kernel_cases.render_case(name, dev)
+        g = render_gray_check(check, cargs, f"render_gray, {name} ({cargs[-2]}x{cargs[-1]} of "
+                              f"{cargs[0].shape[0] // cargs[8]}x{cargs[8]} tiles, background "
+                              f"{cargs[-3]})")
+        err_g = max(err_g, g["exact"])
+    gray = raster.render_gray(*gargs)
+    n_img = gray.numel()
+    bound, by = _bound_ms(_render_gray_bytes(b, poses, n_img), n_tests * 10 + 20 * n_img)
+    rows["render_gray"] = dict(
+        source="orbslam2_nmi_torch/csrc/raster.cu",
+        replaces="orbslam2_nmi_tpu/ops/raster.py:487 (B3), :722 (B4), :693 (B5)",
+        max_abs_err=err_g,
+        ms=cuda_ms(lambda: raster.render_gray(*gargs)),
+        plain_ms=cuda_ms(lambda: raster.render_gray_plain(*gargs), reps=2, warmup=1),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    print(f"  render_gray over {S} renders: {rows['render_gray']['ms']:.4f} ms, bound "
+          f"{bound:.4f} ms by {by}; B3's keys epilogue {rows['rasterize_keys']['ms']:.4f} ms  "
+          f"[{smi}]")
+    del b2
 
     # --- B2 and B1 on the main path's images ----------------------------------
-    synth = raster._untile(gray, S, b.tiles_y, b.tiles_x, b.height, b.width)
+    synth = gray
     warped = fn.warp(frame)
     P = b.height * b.width
     sb, wb = hn.pack_bins(synth), hn.pack_bins(warped)
@@ -2559,8 +2612,10 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"  launches: {launches}")
-    check(all(n > 0 for n in launches.values()), "every kernel of the path launched")
-    check(launches["marginal_entropy"] == 1, "B2 launched once for renders and warps together")
+    check(launches == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
+                       "render_gray": 1},
+          "B1, B2 and render_gray (B3 with B4/B5) launched once each; B3's keys epilogue, "
+          "B3's parity surface, is not on the path")
     check(scores.shape == (S, R) and bool(torch.isfinite(scores).all()), "scores finite, [S, R]")
 
     def plain_scores(use_background):
@@ -2615,18 +2670,18 @@ def main() -> int:
     rc = track_record["raster_check"]
     rows["rasterize_keys"]["max_abs_err"] = max(rows["rasterize_keys"]["max_abs_err"],
                                                 rc["raster_err"])
-    rows["sample_texture"]["max_abs_err"] = max(rows["sample_texture"]["max_abs_err"],
-                                                rc["sampler_err"])
+    rows["render_gray"]["max_abs_err"] = max(rows["render_gray"]["max_abs_err"],
+                                             rc["render_gray_err"])
 
     out = []
-    for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "sample_texture"):
+    for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "render_gray"):
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": r["source"],
                     "replaces": r["replaces"], "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    print(json.dumps({"step_ms": stage, "card": smi}))
+    print(json.dumps({"step_ms": stage, "raster_resources": raster_res, "card": smi}))
     print(json.dumps({"localizer": loc_record, "card": smi}))
     print(json.dumps({"tracking": track_record, "card": smi}))
     print(json.dumps({"mapping": map_record, "card": smi}))

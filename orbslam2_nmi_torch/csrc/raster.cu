@@ -1,26 +1,53 @@
-// Tiled triangle rasterizer: packed z-buffer keys per (candidate pose, tile).
+// Tiled triangle rasterizer with two epilogues: packed z-buffer keys, or the
+// texture sampled into the gray image.
 //
-// Replaces the Pallas kernel `_rasterize_keys` (orbslam2_nmi_tpu/ops/raster.py:
-// 464-508, body `_raster_kernel` :314-461) and computes the function of its
-// plain PyTorch version `rasterize_keys_plain` in orbslam2_nmi_torch/ops/raster.py.
+// Replaces three Pallas kernels of orbslam2_nmi_tpu/ops/raster.py:
+//   B3  `_rasterize_keys` (:464-508, body `_raster_kernel` :314-461);
+//   B4  the whole-texture sampler `_sample_texture_matmul` (:714-734, body
+//       `_sample_kernel` :560-612);
+//   B5  the windowed sampler `_sample_texture_windowed` (:681-711, body
+//       `_sample_window_kernel` :615-666, windows sliced by `_gather_windowsT`
+//       :669-678). It equals B4 on every hit pixel by construction (its
+//       windows hold every texel a tile's hit pixels read), so indexing the
+//       resident texture with global texel indices computes both; the windows
+//       are not built.
+// One sweep body, `raster_tile`, is instantiated by two kernels:
+//   rasterize_keys_kernel  writes key_u and the winners' u, v, each
+//       [S, tiles, 16, 128]: the function of `rasterize_keys_plain` in
+//       orbslam2_nmi_torch/ops/raster.py (B3's parity surface);
+//   render_gray_kernel     samples the texture at each pixel's winning UV and
+//       writes the cropped [S, H, W] gray image: the function of
+//       `render_gray_plain` (the main path: B3, then B4/B5, then the untiling).
 //
-// For candidate s and 16x128 screen tile t, each of the tile's binned
-// triangles is re-projected with the candidate's pose; a pixel is covered when
-// all three edge functions are >= 0 and every vertex lies past `near`. The
-// z-buffer is a min over two packed int32 keys per pixel,
+// The sweep. For candidate s and 16x128 screen tile t, each of the tile's
+// binned triangles is re-projected with the candidate's pose; a pixel is
+// covered when all three edge functions are >= 0 and every vertex lies past
+// `near`. The z-buffer is a min over two packed int32 keys per pixel,
 //     (2^20 - 1 - q(1/z)) * 2^11 + q(u or v),
 // so the nearest surface wins and carries its quantized texture coordinate in
 // the low 11 bits; SENTINEL (2^31 - 1) marks a pixel that no triangle covers.
-// The outputs are key_u and the winners' u, v = (key & 2047) * (1 / 2047).
+// A winner's u, v = (key & 2047) * (1 / 2047).
 //
-// What bounds it on an H100: by the card's peak rates, bytes. On the main
-// path its three [S, tiles, 16, 128] outputs are ~180 MB (54 us at 3.35 TB/s),
-// while the coverage tests that the data needs (each live triangle against the
-// tile's pixels inside its screen bounding box) number ~3.3e7, a few
-// microseconds of f32 operations; chip_smoke.py computes both from its run.
-// What sets this kernel's time is the issue rate of the sweep's instructions:
-// about 20 a test and 44 more where any lane of a warp is covered (the IEEE
-// division, the quantizing, two atomics); the writes overlap it (PERF.md).
+// The sampler. No hit (key_u == SENTINEL) -> `background`; else texel
+// coordinates tu = clip(u, 0, 1) * (tw - 1), tv = clip(1 - v, 0, 1) * (th - 1)
+// (GL v flip), x0 = clip(floor(tu), 0, tw - 2), y0 likewise, and
+//     c_j  = bf16(T[y0, x0+j]) * bf16(1 - ay) + bf16(T[y0+1, x0+j]) * bf16(ay)
+//     gray = c_0 * (1 - ax) + c_1 * ax.
+// The texels and the two y-weights are rounded to bf16 (round to nearest
+// even) because the reference's row-select matrix product took them in bf16
+// (raster.py:582,594,638,650); products and sums are f32, each rounded on its
+// own (__fmul_rn/__fadd_rn, and the file is built with -fmad=false).
+//
+// What bounds it on an H100. By the card's peak rates, bytes: the gray
+// epilogue reads the triangle slab, the poses and the texture once and writes
+// S*H*W floats (~58 MB on the main path, ~17 us at 3.35 TB/s); the keys
+// epilogue writes three [S, tiles, 16, 128] arrays (~180 MB). The coverage
+// tests that the data needs (each live triangle against the tile's pixels
+// inside its screen bounding box) number ~3.3e7, a few microseconds of f32
+// operations; chip_smoke.py computes both from its run. What sets the time is
+// the issue rate of the sweep's instructions: about 20 a test and 44 more
+// where any lane of a warp is covered (the IEEE division, the quantizing, two
+// atomics); the writes overlap it (PERF.md).
 //
 // Design: one block of 128 threads (4 warps) per (tile, candidate), which
 // keeps the tile's two z-buffers (key_u, key_v: int32 [2048] each, 16 KB) in
@@ -37,16 +64,26 @@
 // or outside a large triangle more often than a run of 32 pixels of a row
 // does, so fewer warps take the shading branch with most lanes idle.
 //
+// The epilogues read the finished z-buffers from shared memory. The keys
+// epilogue writes keys, u and v once each, 16 bytes a thread, coalesced. The
+// gray epilogue gives thread c column c of the tile: it decodes each row's
+// u and v as the keys epilogue does, reads the four taps of the texture
+// (256 KB to 1 MB, resident in L2) through the read-only path, and writes the
+// pixel straight into the image, so a warp stores 32 consecutive floats of a
+// row; rows past H and columns past W (the padded last tiles) are not
+// written. The keys, u and v never leave the SM, which saves the 180 MB that
+// the separate sampler read back and its tiled gray's second pass.
+//
 // Why the result stays bit for bit: a pixel center more than a pixel outside
 // the box fails an edge test by far more than f32 rounding, so the box loses
 // no covered pixel (tests/test_torch_raster.py checks it on the CPU); the
 // minimum is commutative, so the keys equal the plain version's in any
-// order. Last, the block writes keys, u and v once each, 16 bytes a thread,
-// coalesced. Planes are evaluated in plain f32 as (a*x + b*y) + c; the
+// order. Planes are evaluated in plain f32 as (a*x + b*y) + c; the
 // reference's bf16x3 split matrix product was a device of the TPU's matrix
 // unit, not part of the function. Built with -fmad=false, every operation
 // rounds as in the plain version. The intrinsics are kernel arguments.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,6 +110,23 @@ struct Projected {
   float sx, sy, z;
 };
 
+// B3's parity surface: key_u and the winners' u, v, each [S, n_tiles, 16, 128]
+struct KeysOut {
+  int* keys;
+  float* u;
+  float* v;
+};
+
+// The main path: the texture [*, tex_stride] (true size th x tw) sampled into
+// the gray image [S, H, W]
+struct GrayOut {
+  const float* tex;
+  int tex_stride, th, tw;
+  float background;
+  int H, W;
+  float* gray;
+};
+
 __device__ __forceinline__ Projected project(const float* m, float X, float Y, float Z,
                                              float fx, float fy, float cx, float cy,
                                              float ox, float oy) {
@@ -83,11 +137,70 @@ __device__ __forceinline__ Projected project(const float* m, float X, float Y, f
   return {sx - ox, sy - oy, zc};
 }
 
-__global__ void __launch_bounds__(kThreads)
-rasterize_keys_kernel(const float* __restrict__ tri, const float* __restrict__ poses,
-                      int n_tiles, int capacity, int tiles_x, float fx, float fy, float cx,
-                      float cy, float near, float qscale, int* __restrict__ keys,
-                      float* __restrict__ u_out, float* __restrict__ v_out) {
+__device__ __forceinline__ float decode_uv(int key) { return (float)(key & 2047) * kInvUvMax; }
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the bilinear tap of one hit pixel, in the plain version's operation order
+__device__ __forceinline__ float sample(const GrayOut& o, float u, float v) {
+  const float tu = __fmul_rn(fminf(fmaxf(u, 0.0f), 1.0f), (float)(o.tw - 1));
+  const float tv = __fmul_rn(fminf(fmaxf(__fsub_rn(1.0f, v), 0.0f), 1.0f), (float)(o.th - 1));
+  const float x0f = fminf(fmaxf(floorf(tu), 0.0f), (float)(o.tw - 2));
+  const float y0f = fminf(fmaxf(floorf(tv), 0.0f), (float)(o.th - 2));
+  const float ax = __fsub_rn(tu, x0f);
+  const float ay = __fsub_rn(tv, y0f);
+  const float* row0 = o.tex + (size_t)(int)y0f * o.tex_stride + (int)x0f;
+  const float* row1 = row0 + o.tex_stride;
+  const float w0 = bf16_round(__fsub_rn(1.0f, ay));
+  const float w1 = bf16_round(ay);
+  const float c0 = __fadd_rn(__fmul_rn(bf16_round(__ldg(row0)), w0),
+                             __fmul_rn(bf16_round(__ldg(row1)), w1));
+  const float c1 = __fadd_rn(__fmul_rn(bf16_round(__ldg(row0 + 1)), w0),
+                             __fmul_rn(bf16_round(__ldg(row1 + 1)), w1));
+  return __fadd_rn(__fmul_rn(c0, __fsub_rn(1.0f, ax)), __fmul_rn(c1, ax));
+}
+
+__device__ __forceinline__ void write_out(const KeysOut& o, const int* key_u, const int* key_v,
+                                          int tile, int s, int n_tiles, int tiles_x) {
+  const size_t base = ((size_t)s * n_tiles + tile) * kPix;
+  const int4* ku = reinterpret_cast<const int4*>(key_u);
+  const int4* kv = reinterpret_cast<const int4*>(key_v);
+#pragma unroll
+  for (int k = 0; k < kPix / 4 / kThreads; ++k) {
+    const int i4 = threadIdx.x + k * kThreads;
+    const int4 a = ku[i4], b = kv[i4];
+    reinterpret_cast<int4*>(o.keys + base)[i4] = a;
+    reinterpret_cast<float4*>(o.u + base)[i4] =
+        make_float4(decode_uv(a.x), decode_uv(a.y), decode_uv(a.z), decode_uv(a.w));
+    reinterpret_cast<float4*>(o.v + base)[i4] =
+        make_float4(decode_uv(b.x), decode_uv(b.y), decode_uv(b.z), decode_uv(b.w));
+  }
+}
+
+__device__ __forceinline__ void write_out(const GrayOut& o, const int* key_u, const int* key_v,
+                                          int tile, int s, int n_tiles, int tiles_x) {
+  const int x = (tile % tiles_x) * kTileW + threadIdx.x;
+  const int y0 = (tile / tiles_x) * kTileH;
+  if (x >= o.W) return;  // a column of the padded last tile
+  const int rows = min(kTileH, o.H - y0);
+  float* dst = o.gray + ((size_t)s * o.H + y0) * o.W + x;
+#pragma unroll 4
+  for (int iy = 0; iy < rows; ++iy) {
+    const int p = iy * kTileW + threadIdx.x;
+    const int ku = key_u[p];
+    dst[(size_t)iy * o.W] =
+        ku == kSentinel ? o.background : sample(o, decode_uv(ku), decode_uv(key_v[p]));
+  }
+}
+
+template <class Out>
+__device__ __forceinline__ void raster_tile(const float* __restrict__ tri,
+                                            const float* __restrict__ poses, int n_tiles,
+                                            int capacity, int tiles_x, float fx, float fy,
+                                            float cx, float cy, float near, float qscale,
+                                            const Out& out) {
   __shared__ Tri tris[kChunk];
   __shared__ __align__(16) int key_u[kPix];
   __shared__ __align__(16) int key_v[kPix];
@@ -188,22 +301,21 @@ rasterize_keys_kernel(const float* __restrict__ tri, const float* __restrict__ p
     }
     __syncthreads();  // the z-buffers are complete / the next chunk overwrites `tris`
   }
+  write_out(out, key_u, key_v, tile, s, n_tiles, tiles_x);
+}
 
-  const size_t base = ((size_t)s * n_tiles + tile) * kPix;
-  const int4* ku = reinterpret_cast<const int4*>(key_u);
-  const int4* kv = reinterpret_cast<const int4*>(key_v);
-#pragma unroll
-  for (int k = 0; k < kPix / 4 / kThreads; ++k) {
-    const int i4 = threadIdx.x + k * kThreads;
-    const int4 a = ku[i4], b = kv[i4];
-    reinterpret_cast<int4*>(keys + base)[i4] = a;
-    reinterpret_cast<float4*>(u_out + base)[i4] =
-        make_float4((float)(a.x & 2047) * kInvUvMax, (float)(a.y & 2047) * kInvUvMax,
-                    (float)(a.z & 2047) * kInvUvMax, (float)(a.w & 2047) * kInvUvMax);
-    reinterpret_cast<float4*>(v_out + base)[i4] =
-        make_float4((float)(b.x & 2047) * kInvUvMax, (float)(b.y & 2047) * kInvUvMax,
-                    (float)(b.z & 2047) * kInvUvMax, (float)(b.w & 2047) * kInvUvMax);
-  }
+__global__ void __launch_bounds__(kThreads)
+rasterize_keys_kernel(const float* __restrict__ tri, const float* __restrict__ poses,
+                      int n_tiles, int capacity, int tiles_x, float fx, float fy, float cx,
+                      float cy, float near, float qscale, KeysOut out) {
+  raster_tile(tri, poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near, qscale, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+render_gray_kernel(const float* __restrict__ tri, const float* __restrict__ poses, int n_tiles,
+                   int capacity, int tiles_x, float fx, float fy, float cx, float cy, float near,
+                   float qscale, GrayOut out) {
+  raster_tile(tri, poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near, qscale, out);
 }
 
 }  // namespace
@@ -218,8 +330,33 @@ int nmi_rasterize_keys(const void* tri, const void* poses, int S, int n_tiles, i
                        float qscale, void* keys, void* u, void* v, void* stream) {
   rasterize_keys_kernel<<<dim3(n_tiles, S), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const float*)poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near,
-      qscale, (int*)keys, (float*)u, (float*)v);
+      qscale, KeysOut{(int*)keys, (float*)u, (float*)v});
   return (int)cudaGetLastError();
+}
+
+// tri and poses as above; tex [*, tex_stride] f32 whose true size is (th, tw);
+// gray [S, H, W] f32 with H <= 16 * (n_tiles / tiles_x) and W <= 128 * tiles_x.
+int nmi_render_gray(const void* tri, const void* poses, int S, int n_tiles, int capacity,
+                    int tiles_x, float fx, float fy, float cx, float cy, float near,
+                    float qscale, const void* tex, int tex_stride, int th, int tw,
+                    float background, int H, int W, void* gray, void* stream) {
+  render_gray_kernel<<<dim3(n_tiles, S), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)tri, (const float*)poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near,
+      qscale, GrayOut{(const float*)tex, tex_stride, th, tw, background, H, W, (float*)gray});
+  return (int)cudaGetLastError();
+}
+
+// The resources of one of the two kernels (gray != 0: render_gray_kernel):
+// registers a thread, static shared memory a block, and the blocks that fit
+// on one SM at once. Returns the CUDA error code.
+int nmi_raster_resources(int gray, int* regs, int* smem, int* blocks_per_sm) {
+  const void* fn = gray ? (const void*)render_gray_kernel : (const void*)rasterize_keys_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *smem = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0);
 }
 
 }  // extern "C"

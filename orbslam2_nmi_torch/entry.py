@@ -4,9 +4,9 @@ system on the circuit.
 
 `entry()` mirrors `__graft_entry__.entry()` of the JAX package: one full evaluation of
 the pose grid around a prior pose. It renders every translation candidate of
-the textured prior mesh (kernel B3 and the sampler), warps the live frame by
-every rotation hypothesis, scores every (render, warp) pair by NMI (kernels
-B1 and B2), and takes the argmax on the device.
+the textured prior mesh (kernel B3 with the sampler fused, `render_gray`),
+warps the live frame by every rotation hypothesis, scores every (render,
+warp) pair by NMI (kernels B1 and B2), and takes the argmax on the device.
 
     from orbslam2_nmi_torch.entry import entry
     fn, (frame, Tcw) = entry()            # 960x540, 27 renders x 27 warps

@@ -198,8 +198,8 @@ class SyntheticMeshWorld:
     def render_frames(self, frame_ids, n_frames: int, width: int, height: int,
                       device="cuda") -> torch.Tensor:
         """Frames [len(frame_ids), H, W] uint8 on `device`, each binned on the
-        host and rendered at its own exact pose (B3 and the sampler on CUDA,
-        one launch each a frame). Raises if the binning dropped a triangle:
+        host and rendered at its own exact pose (`render_gray`, B3 with the
+        sampler fused, one launch a frame on CUDA). Raises if the binning dropped a triangle:
         holes in the ground-truth imagery would bias every test of it."""
         K = self.camera_K(width, height)
         near, far = self.near_far()

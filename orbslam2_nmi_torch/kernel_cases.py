@@ -1,5 +1,5 @@
 """Adversarial inputs for kernels B1 (joint entropy), B2 (marginal entropy)
-and B3 (rasterizer).
+and B3 (rasterizer, with its keys and its gray epilogue).
 
 `chip_smoke.py` and the card-only tests hold each kernel against its plain
 version on these inputs; `tests/test_torch_raster.py` also checks on the CPU,
@@ -12,6 +12,7 @@ relies on. Every input is made with numpy from a seed.
         for synth_bins, warp_bins in calls: marginal_error(synth_bins, warp_bins)
     for name in RASTER_CASES: tri_data, poses, capacity, *camera, tiles_x = raster_case(name, device)
     raster_mismatch(rasterize_keys(*args), rasterize_keys_plain(*args))
+    for name in RASTER_CASES: render_gray_gaps(render_case(name, device))
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from orbslam2_nmi_torch.ops import histogram_nmi as hn
+from orbslam2_nmi_torch.ops import raster
 from orbslam2_nmi_torch.ops.raster import SENTINEL, TILE_H, TILE_W
 
 P_MAIN = 960 * 540  # pixels of one image on the main path
@@ -291,3 +293,38 @@ def raster_mismatch(got, want) -> dict:
         v=((vv != pv) & both).sum().item() / n_both,
         depth=((keys >> 11) - (pk >> 11)).abs()[both].max().item() if both.any() else 0,
         err=max((uu - pu).abs().max().item(), (vv - pv).abs().max().item()))
+
+
+# B3's gray epilogue on the raster cases: a seeded texture padded past its
+# true size (the padding is never read), a background that no texel takes,
+# and an image that crops the last tile row and column (neither side a
+# multiple of the tile's)
+RENDER_TEX_PAD, RENDER_TEX_HW = (128, 256), (100, 200)
+RENDER_BACKGROUND = -17.5
+RENDER_HW = (TILES_Y * TILE_H - 3, TILES_X * TILE_W - 35)
+
+
+def render_case(name: str, device, seed: int = 0):
+    """The arguments of `raster.render_gray` for one raster case: those of
+    `raster_case`, then texture, th, tw, background, H, W."""
+    rng = np.random.default_rng(seed + 1)
+    tex = rng.uniform(0, 255, RENDER_TEX_PAD).astype(np.float32)
+    return (*raster_case(name, device, seed), torch.from_numpy(tex).to(device),
+            *RENDER_TEX_HW, RENDER_BACKGROUND, *RENDER_HW)
+
+
+def render_gray_gaps(args) -> dict:
+    """How far `raster.render_gray(*args)` lies from its two references:
+    `exact`, max |diff| to `sample_texture_plain` of `rasterize_keys`' own
+    outputs, untiled (the same z-buffer, so 0 is the bar); against the
+    all-plain `render_gray_plain`, `mismatch`, the fraction of pixels that
+    differ, and `err`, the largest difference."""
+    tri, poses, capacity, fx, fy, cx, cy, near, tiles_x, tex, th, tw, bg, H, W = args
+    got = raster.render_gray(*args)
+    keys = raster.rasterize_keys(tri, poses, capacity, fx, fy, cx, cy, near, tiles_x)
+    same_z = raster._untile(raster.sample_texture_plain(*keys, tex, th, tw, bg), poses.shape[0],
+                            tri.shape[0] // tiles_x, tiles_x, H, W)
+    plain = raster.render_gray_plain(*args)
+    return dict(exact=(got - same_z).abs().max().item(),
+                mismatch=(got != plain).float().mean().item(),
+                err=(got - plain).abs().max().item())

@@ -29,11 +29,12 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("histogram_nmi.cu", "raster.cu", "sample_texture.cu")
+_SOURCES = ("histogram_nmi.cu", "raster.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # -fmad=false: no multiply-add contraction, so every kernel rounds each
 # product and sum as its plain PyTorch version does and the two agree bit for
-# bit on the card (the sampler must also copy the reference's rounding).
+# bit on the card (the texture sampling must also copy the reference's
+# rounding).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
@@ -45,7 +46,8 @@ _SIGNATURES = {
     "joint_entropy": (_p, _p, _i, _i, _ll, _f, _i, _p, _p),
     "marginal_entropy": (_p, _i, _p, _i, _ll, _f, _p, _p),
     "rasterize_keys": (_p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _p, _p, _p, _p),
-    "sample_texture": (_p, _p, _p, _ll, _p, _i, _i, _i, _f, _p, _p),
+    "render_gray": (_p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _p, _i, _i, _i, _f, _i, _i,
+                    _p, _p),
 }
 
 # launches per kernel since the last reset_launches()

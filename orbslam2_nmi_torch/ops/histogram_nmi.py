@@ -17,8 +17,12 @@ tensors and runs its plain PyTorch version for CPU tensors only.
 Fewer bins (`n_bins` < 256, `NMIConfig.n_bins`) need no other kernel: the
 gray levels are clamped to `n_bins - 1` before packing, as the reference
 clips them (its histogram_nmi.py:48-50), so only the first `n_bins` of the
-256 counted bins can be nonzero, and an empty bin adds 0 to an entropy. More
-than 256 bins do not fit in one byte and raise.
+256 counted bins can be nonzero, and an empty bin adds 0 to an entropy.
+More than 256 bins clamp at 255, the last level one byte holds. On the
+reference's documented input range [0, 255] (its :370) that is its result:
+it clips at `n_bins - 1`, so no level moves and the bins past 255 stay
+empty. Levels above 255 with more than 256 bins land in the last byte bin,
+where the reference would give them bins of their own.
 
 Score metrics (reference kernel.cuh:22-23, NMI.cu:344-359):
     SUC  = 2 * (1 - Hab / (Ha + Hb))     <- enabled in the reference
@@ -47,11 +51,11 @@ _LOG2E = 1.4426950408889634
 
 
 def _top_bin(n_bins: int) -> int:
-    """The last bin index of an `n_bins` histogram packed in one byte."""
-    if not 1 <= n_bins <= N_BINS:
-        raise ValueError(f"n_bins must be in [1, {N_BINS}] (the bins are packed in one byte), "
-                         f"got {n_bins}")
-    return n_bins - 1
+    """The last bin index of an `n_bins` histogram packed in one byte: the
+    levels clamp at `n_bins - 1`, and at 255 for more than 256 bins."""
+    if n_bins < 1:
+        raise ValueError(f"n_bins must be at least 1, got {n_bins}")
+    return min(n_bins, N_BINS) - 1
 
 
 def quantize_to_bins(img: torch.Tensor, n_bins: int = N_BINS) -> torch.Tensor:
@@ -265,7 +269,8 @@ def nmi_scores(
     use_background: bool = True,
 ) -> torch.Tensor:
     """Score every (render, warp) pair: [S, R] float32, over `n_bins` gray
-    bins (at most 256, the reference's uint8 histograms).
+    bins (the reference's uint8 histograms: more than 256 bins score as 256,
+    which equals the reference on images in [0, 255]).
 
     `use_background=False` is the reference's `nmi_prop_BG=false` compile
     option (NMI.cu:85): pairs where either image is 0 are excluded from all

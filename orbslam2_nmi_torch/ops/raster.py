@@ -9,19 +9,25 @@ OBJ mesh through GLSL shaders into a GL_RED FBO). Stages:
      pose and binned into fixed-capacity per-screen-tile lists, with a margin
      that covers the whole translation-candidate grid, so one binning serves
      every candidate.
-  2. **Kernel B3** (`rasterize_keys`, csrc/raster.cu), one block per
+  2. **Kernel B3 and the sampler** (csrc/raster.cu), one block per
      (candidate, tile): re-project the tile's triangles for the candidate,
      test coverage, and keep a single-pass integer z-buffer min over packed
-     (quantized 1/z << 11 | quantized u-or-v) keys, so the winner's
-     perspective-correct UV rides in the low bits.
-  3. **The sampler** (`sample_texture`, csrc/sample_texture.cu), one thread per
-     pixel: bilinear sampling of the grayscale texture at the winning UVs,
-     with the reference's bf16 rounding of texels and row weights. It serves
-     both of the reference's samplers (whole texture and per-tile windows),
-     which compute the same function.
+     (quantized 1/z << 11 | quantized u-or-v) keys in shared memory, so the
+     winner's perspective-correct UV rides in the low bits. One sweep body
+     has two epilogues:
+       * `render_gray` (the main path): bilinear sampling of the grayscale
+         texture at each pixel's winning UV, with the reference's bf16
+         rounding of texels and row weights, written straight into the
+         cropped [S, H, W] image. It serves B3 and both of the reference's
+         samplers (whole texture B4 and per-tile windows B5), which compute
+         the same function.
+       * `rasterize_keys`: the keys and the winners' UVs in the tiled layout
+         [S, tiles, 16, 128], B3's own output, which the parity checks hold
+         against the reference and against its plain version.
 
 Each kernel wrapper launches its kernel for CUDA tensors and runs the plain
-PyTorch version beside it for CPU tensors only.
+PyTorch version for CPU tensors only: `render_gray_plain` is
+`rasterize_keys_plain`, then `sample_texture_plain`, then `_untile`.
 
 Differences vs GL, by design (as in the reference): triangles crossing the
 near plane are dropped whole rather than clipped, and shared-edge pixels may
@@ -367,22 +373,27 @@ def rasterize_keys_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_
             torch.stack(vs).reshape(shape))
 
 
+def _check_raster_args(tri_data, poses, capacity):
+    n_tiles = tri_data.shape[0]
+    if tri_data.shape != (n_tiles, 16, capacity) or capacity % 128 or capacity <= 0:
+        raise ValueError(f"tri_data {tuple(tri_data.shape)} must be [n_tiles, 16, capacity], "
+                         f"capacity a positive multiple of 128 (got {capacity})")
+    if poses.dim() != 2 or poses.shape[1] != 12 or poses.shape[0] == 0 or n_tiles == 0:
+        raise ValueError(f"poses must be [S, 12] with S > 0, got {tuple(poses.shape)}")
+
+
 @labelled("rasterize_keys")
 def rasterize_keys(tri_data: torch.Tensor, poses: torch.Tensor, capacity: int,
                    fx: float, fy: float, cx: float, cy: float, near: float, tiles_x: int):
     """(keys int32, u f32, v f32), each [S, n_tiles, TILE_H, TILE_W]: packed
-    z-buffer keys (SENTINEL = no hit) + the winner's texture UVs. Kernel B3 on
-    CUDA, the plain version on CPU."""
-    n_tiles = tri_data.shape[0]
-    S = poses.shape[0]
-    if tri_data.shape != (n_tiles, 16, capacity) or capacity % 128 or capacity <= 0:
-        raise ValueError(f"tri_data {tuple(tri_data.shape)} must be [n_tiles, 16, capacity], "
-                         f"capacity a positive multiple of 128 (got {capacity})")
-    if poses.dim() != 2 or poses.shape[1] != 12 or S == 0 or n_tiles == 0:
-        raise ValueError(f"poses must be [S, 12] with S > 0, got {tuple(poses.shape)}")
+    z-buffer keys (SENTINEL = no hit) + the winner's texture UVs. Kernel B3's
+    keys epilogue on CUDA, the plain version on CPU."""
+    _check_raster_args(tri_data, poses, capacity)
     if tri_data.device.type == "cpu":
         return rasterize_keys_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_x)
     dev = kernels.require_cuda(tri_data, poses, dtypes=(torch.float32, torch.float32))
+    n_tiles = tri_data.shape[0]
+    S = poses.shape[0]
     shape = (S, n_tiles, TILE_H, TILE_W)
     keys = torch.empty(shape, dtype=torch.int32, device=dev)
     u = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -396,7 +407,7 @@ def rasterize_keys(tri_data: torch.Tensor, poses: torch.Tensor, capacity: int,
 
 
 # ---------------------------------------------------------------------------
-# The sampler (kernels B4 and B5 of the reference)
+# The sampler (kernels B4 and B5 of the reference), B3's gray epilogue
 # ---------------------------------------------------------------------------
 
 
@@ -424,30 +435,6 @@ def sample_texture_plain(keys, uu, vv, texture, th, tw, background):
     return torch.where(hit, gray, torch.tensor(background, dtype=torch.float32, device=gray.device))
 
 
-@labelled("sample_texture")
-def sample_texture(keys: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
-                   texture: torch.Tensor, th: int, tw: int, background: float) -> torch.Tensor:
-    """Bilinear gray at each hit pixel's (u, 1-v), `background` elsewhere.
-
-    keys/uu/vv: [S, n_tiles, 16, 128] from `rasterize_keys`; texture
-    [Th_pad, Tw_pad] f32 whose true size is (th, tw). The sampler kernel on
-    CUDA, the plain version on CPU."""
-    if uu.shape != keys.shape or vv.shape != keys.shape or keys.numel() == 0:
-        raise ValueError("keys, u and v must be non-empty and of one shape")
-    if texture.dim() != 2 or not (2 <= th <= texture.shape[0] and 2 <= tw <= texture.shape[1]):
-        raise ValueError(f"texture {tuple(texture.shape)} cannot hold a ({th}, {tw}) texture")
-    if keys.device.type == "cpu":
-        return sample_texture_plain(keys, uu, vv, texture, th, tw, background)
-    dev = kernels.require_cuda(
-        keys, uu, vv, texture, dtypes=(torch.int32, torch.float32, torch.float32, torch.float32))
-    out = torch.empty(keys.shape, dtype=torch.float32, device=dev)
-    kernels.launch(
-        "sample_texture", dev, keys.data_ptr(), uu.data_ptr(), vv.data_ptr(), keys.numel(),
-        texture.data_ptr(), texture.shape[1], th, tw, float(background), out.data_ptr(),
-    )
-    return out
-
-
 def _untile(x: torch.Tensor, S: int, ty: int, tx: int, H: int, W: int) -> torch.Tensor:
     """[S, n_tiles, 16, 128] tiled layout -> [S, H, W] image (crop padding)."""
     return (
@@ -455,6 +442,50 @@ def _untile(x: torch.Tensor, S: int, ty: int, tx: int, H: int, W: int) -> torch.
         .permute(0, 1, 3, 2, 4)
         .reshape(S, ty * TILE_H, tx * TILE_W)[:, :H, :W]
     )
+
+
+def render_gray_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_x, texture, th, tw,
+                      background, H, W):
+    """Plain version of `render_gray`: B3, the sampler and the untiling."""
+    keys, uu, vv = rasterize_keys_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_x)
+    gray = sample_texture_plain(keys, uu, vv, texture, th, tw, background)
+    return _untile(gray, poses.shape[0], tri_data.shape[0] // tiles_x, tiles_x, H, W)
+
+
+@labelled("render_gray")
+def render_gray(tri_data: torch.Tensor, poses: torch.Tensor, capacity: int, fx: float,
+                fy: float, cx: float, cy: float, near: float, tiles_x: int,
+                texture: torch.Tensor, th: int, tw: int, background: float, H: int,
+                W: int) -> torch.Tensor:
+    """[S, H, W] f32: each candidate pose's render, the bilinear gray at each
+    hit pixel's (u, 1-v) and `background` elsewhere.
+
+    tri_data [n_tiles, 16, capacity] and poses [S, 12] as `rasterize_keys`
+    takes them; texture [Th_pad, Tw_pad] f32 whose true size is (th, tw); the
+    image is the top-left H x W of the tiles_y x tiles_x tiles. Kernel B3 with
+    its gray epilogue on CUDA, the plain version on CPU."""
+    _check_raster_args(tri_data, poses, capacity)
+    n_tiles = tri_data.shape[0]
+    if tiles_x <= 0 or n_tiles % tiles_x:
+        raise ValueError(f"{n_tiles} tiles are not rows of tiles_x = {tiles_x}")
+    tiles_y = n_tiles // tiles_x
+    if not (0 < H <= tiles_y * TILE_H and 0 < W <= tiles_x * TILE_W):
+        raise ValueError(f"a {H}x{W} image does not fit {tiles_y}x{tiles_x} tiles")
+    if texture.dim() != 2 or not (2 <= th <= texture.shape[0] and 2 <= tw <= texture.shape[1]):
+        raise ValueError(f"texture {tuple(texture.shape)} cannot hold a ({th}, {tw}) texture")
+    if tri_data.device.type == "cpu":
+        return render_gray_plain(tri_data, poses, capacity, fx, fy, cx, cy, near, tiles_x,
+                                 texture, th, tw, background, H, W)
+    dev = kernels.require_cuda(tri_data, poses, texture,
+                               dtypes=(torch.float32, torch.float32, torch.float32))
+    S = poses.shape[0]
+    gray = torch.empty((S, H, W), dtype=torch.float32, device=dev)
+    kernels.launch(
+        "render_gray", dev, tri_data.data_ptr(), poses.data_ptr(), S, n_tiles, capacity, tiles_x,
+        fx, fy, cx, cy, near, float((DEPTH_LEVELS - 1) * near), texture.data_ptr(),
+        texture.shape[1], th, tw, float(background), H, W, gray.data_ptr(),
+    )
+    return gray
 
 
 def grid_poses(Tcw: torch.Tensor, offsets_cam: torch.Tensor) -> torch.Tensor:
@@ -486,15 +517,13 @@ def render_mesh_grid(
     dev = binned.tri_data.device
     Tcw = torch.as_tensor(Tcw, dtype=torch.float32, device=dev)
     offsets_cam = torch.as_tensor(offsets_cam, dtype=torch.float32, device=dev)
-    S = offsets_cam.shape[0]
-    keys, uu, vv = rasterize_keys(
+    th, tw = binned.tex_hw
+    img = render_gray(
         binned.tri_data, grid_poses(Tcw, offsets_cam), binned.capacity,
         float(K_host[0, 0]), float(K_host[1, 1]), float(K_host[0, 2]), float(K_host[1, 2]),
-        float(near), binned.tiles_x,
+        float(near), binned.tiles_x, binned.texture, th, tw, float(background), binned.height,
+        binned.width,
     )
-    th, tw = binned.tex_hw
-    gray = sample_texture(keys, uu, vv, binned.texture, th, tw, float(background))
-    img = _untile(gray, S, binned.tiles_y, binned.tiles_x, binned.height, binned.width)
     if out_u8:
         img = torch.clamp(img, 0.0, 255.0).to(torch.uint8)
     return img

@@ -110,6 +110,6 @@ def sharded_nmi_search_mesh(
 ) -> torch.Tensor:
     """The textured-mesh variant (the reference's default render mode 1):
     each rank rasterizes its share of the candidates from the shared binned
-    mesh (kernel B3 and the sampler on the card)."""
+    mesh (`render_gray`, kernel B3 with the sampler fused, on the card)."""
     return _search(mesh, lambda off: raster.render_mesh_grid(binned, Tcw, K, off, near, far),
                    frame_gray, offsets_cam, angles, K, metric)

@@ -21,15 +21,18 @@ Where the port differs:
     package's: map mutations hold `map.lock`, the BA's device solve does not,
     and a result computed against a map that a reset wiped is discarded.
   * `records` keeps, for each processed keyframe, the time of each phase and
-    the sizes of its local BA (`last_ba`), read by `chip_smoke.py`. The JAX
-    package's divergence dump (an environment variable naming a directory)
-    is left out; a rejected solve is logged as there.
+    the sizes of its local BA (`last_ba`), read by `chip_smoke.py`.
+  * A rejected local BA is logged and, when `ORBSLAM2_NMI_TORCH_DUMP_BAD_BA`
+    names a directory, dumped there as `bad_ba_{O}.npz` with the JAX
+    package's keys (its `ORBSLAM2_NMI_TPU_DUMP_BAD_BA`, local_mapping.py:
+    597-613).
   * `_triangulate_pair`, which nothing in the JAX package calls, is not
     ported.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -42,6 +45,9 @@ from orbslam2_nmi_torch.slam.map_store import MapStore
 from orbslam2_nmi_torch.solvers import local_ba
 from orbslam2_nmi_torch.utils.bucketing import bucket, pad_rows, row_mask
 from orbslam2_nmi_torch.utils.readback import to_host
+
+# names a directory into which a rejected local BA's problem is dumped
+DUMP_BAD_BA = "ORBSLAM2_NMI_TORCH_DUMP_BAD_BA"
 
 
 def _next_pow2(n: int, lo: int = 64) -> int:
@@ -538,6 +544,10 @@ class LocalMapper:
         if O >= 50 and n_bad > 0.8 * O:
             self.log(f"local BA REJECTED: {n_bad}/{O} observations marked outlier "
                      "(divergent solve, fixed-anchor conflict?) — result discarded")
+            dump, prob = os.environ.get(DUMP_BAD_BA), self._last_prob
+            if dump and prob is not None:
+                np.savez(os.path.join(dump, f"bad_ba_{O}.npz"), O=O, new_cams=new_cams,
+                         chi2=res.chi2, **{f: to_host(getattr(prob, f)) for f in prob._fields})
             return None
         for i, kf in enumerate(cams):
             if not fixed[i] and m.kf_valid[kf]:

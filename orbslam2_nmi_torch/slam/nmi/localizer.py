@@ -24,12 +24,12 @@ Where it differs from the JAX localizer, on purpose:
     point splat whenever it is not on a TPU (its :103-110). Here a mesh
     always goes through `raster.bin_mesh` (once per `evaluate_grid`, with the
     margin of the grid's largest offset per axis) and `raster.render_mesh_grid`
-    (kernel B3 and the sampler on the card, their plain versions on the
-    CPU), so there is no `force_mesh_raster`. A point model (render mode 4)
+    (`render_gray`, kernel B3 with the sampler fused, on the card, its plain
+    version on the CPU), so there is no `force_mesh_raster`. A point model (render mode 4)
     goes through `render.render_translation_grid`.
-  * **At most 256 bins.** `cfg.n_bins` goes to `nmi_scores`, which packs
-    the gray levels in one byte: more than 256 bins raise ValueError (the
-    reference takes any count).
+  * **One byte a level.** `cfg.n_bins` goes to `nmi_scores`, which packs
+    the gray levels in one byte: more than 256 bins score as 256, which is
+    the reference's result on frames and renders in [0, 255].
 
 Sign conventions: translation candidates move the camera center along its own
 axes, offset_cam = (i - (n-1)/2) * step per axis (x right, y down, z forward);
@@ -134,7 +134,7 @@ class NMILocalizer:
         that factor: the caller passes frames of camera size // image_scale."""
         if model is None and mesh is None:
             raise ValueError("NMILocalizer needs a point model or a mesh")
-        histogram_nmi.quantize_to_bins(torch.zeros(1), cfg.n_bins)  # raises above 256 bins
+        histogram_nmi.quantize_to_bins(torch.zeros(1), cfg.n_bins)  # raises below 1 bin
         self.device = kernels.resolve_device(device, "NMILocalizer")
         self.cfg = cfg
         self.camera = camera

@@ -38,7 +38,11 @@ Where the port differs, or is likely to trip:
   is NaN), so its RANSAC finds no pose. Torch's batched solvers raise on
   such input (CUDA's `eigh` stopped a relocalization on the card, ROADMAP
   C5), so the hypothesis is solved with the point at the origin and its
-  pose set to NaN.
+  pose set to NaN. A hypothesis whose 12x12 normal matrix overflows float32
+  (a near-singular control frame) is likewise solved on a fixed matrix and
+  returned as NaN, where the reference's eigen-solve gives NaN and CUDA's
+  raised (ROADMAP C9); an eigen-solve that fails to converge on a finite
+  batch is run again in float64.
 * Precision: the 12x12 normal matrix M^T M is summed over the points in
   float64 and rounded (a float32 matmul would follow the TF32 flags); the
   small products are elementwise float32 (`se3.mm`, `se3.mv`); 3x3
@@ -75,6 +79,25 @@ def _gram64(a: torch.Tensor) -> torch.Tensor:
     """a^T a over the last two axes, summed in float64 and rounded."""
     a = a.double()
     return (a.transpose(-1, -2) @ a).float()
+
+
+def _generic_spd(n: int, device) -> torch.Tensor:
+    """C C^T with C_ij = sin(0.7 (n i + j) + 1): a fixed symmetric matrix
+    with generic eigenvectors, on which the EPnP systems have full rank."""
+    c = torch.sin(torch.arange(n * n, dtype=torch.float32, device=device).reshape(n, n) * 0.7
+                  + 1.0)
+    return se3.mm(c, c.transpose(0, 1))
+
+
+def _eigh(A: torch.Tensor):
+    """torch.linalg.eigh of symmetric A [..., n, n]. Should the solver fail
+    to converge on a finite batch and raise (CUDA's batched Jacobi did once
+    on an EPnP batch, ROADMAP C9), the batch is solved again in float64 on
+    its device and the result rounded; only a second failure raises."""
+    try:
+        return torch.linalg.eigh(A)
+    except torch.linalg.LinAlgError:
+        return tuple(x.to(A.dtype) for x in torch.linalg.eigh(A.double()))
 
 
 _FAR = 1e15  # m; a coordinate's square stays far inside float32's range
@@ -171,7 +194,7 @@ def epnp_pose(K, pts_w, uv, weights):
     c0 = torch.sum(pts_w * w[..., None], -2) / wsum[..., None]
     q = (pts_w - c0[..., None, :]) * w[..., None]
     cov = (q[..., :, :, None] * q[..., :, None, :]).sum(-3) / wsum[..., None, None]
-    eval_, evec = torch.linalg.eigh(cov)  # ascending
+    eval_, evec = _eigh(cov)  # ascending
     axes = evec * torch.sqrt(torch.clamp(eval_, min=1e-10))[..., None, :]
     C = torch.stack([c0, c0 + axes[..., :, 2], c0 + axes[..., :, 1], c0 + axes[..., :, 0]], -2)
 
@@ -190,7 +213,14 @@ def epnp_pose(K, pts_w, uv, weights):
     r2 = torch.stack([zero, alpha * fy, -alpha * dv[:, None]], -1).flatten(-2)
     ws = torch.sqrt(w)[..., None]
     MtM = _gram64(r1 * ws) + _gram64(r2 * ws)
-    V = torch.linalg.eigh(MtM)[1]  # ascending eigenvalues
+    # a near-singular control frame can give barycentric coordinates whose
+    # squares overflow float32: the reference's eigen-solve then returns NaN,
+    # CUDA's raises (ROADMAP C9), so such a hypothesis is solved on a fixed
+    # matrix and returned as NaN
+    nonfinite = ~torch.isfinite(MtM).all(-1).all(-1)
+    bad = bad | nonfinite
+    MtM = torch.where(nonfinite[..., None, None], _generic_spd(12, dev), MtM)
+    V = _eigh(MtM)[1]  # ascending eigenvalues
     v = [V[..., :, k].reshape(*V.shape[:-2], 4, 3) for k in range(4)]
 
     rho = _dists(C)  # [..., 6] squared distances between the world control points

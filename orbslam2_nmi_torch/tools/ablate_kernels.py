@@ -1,5 +1,6 @@
 """Ablations of kernels B1 (joint entropy), B2 (marginal entropy) and B3
-(rasterizer), timed on the main path.
+(rasterizer: its keys epilogue, `rasterize_keys`, and its gray epilogue,
+`render_gray`, the texture sampler fused), timed on the main path.
 
     python3 -m orbslam2_nmi_torch.tools.ablate_kernels      # from the root of a checkout, one GPU
 
@@ -34,8 +35,9 @@ from orbslam2_nmi_torch.ops import raster
 OUT = kernels.BUILD_DIR.parent / "ablations"
 SKIP = "(int)(qscale < 0.0f)"  # 0 at run time, unknown to the compiler
 SKIP_MARGINAL = "(long long)(inv_n < 0.0f)"  # the same in the marginal kernel
+SKIP_OUT = "(int)(tiles_x < 0)"  # the same in the raster epilogues
 QUEUE_CYCLES = 20_000_000  # ~10 ms of sleep kernel, longer than enqueueing the timed launches
-SOURCES = {"rasterize_keys": "raster", "joint_entropy": "histogram_nmi",
+SOURCES = {"rasterize_keys": "raster", "render_gray": "raster", "joint_entropy": "histogram_nmi",
            "marginal_entropy": "histogram_nmi"}  # C entry point -> csrc/<source>.cu
 
 _SWEEP_8X4 = """      for (int by = ly; by - ly < q.h; by += 4) {
@@ -48,7 +50,10 @@ _SWEEP_ROWS = """      for (int j0 = 0; j0 < q.w * q.h; j0 += 32) {
 _WRITES = "#pragma unroll\n  for (int k = 0; k < kPix / 4 / kThreads; ++k) {"
 _NO_SWEEP = ("for (int t = warp; t < n; t += kWarps) {",
              f"for (int t = warp; t < n * {SKIP}; t += kWarps) {{")
-_NO_WRITES = (_WRITES, f"if ({SKIP})\n" + _WRITES)
+_NO_WRITES = (_WRITES, f"if ({SKIP_OUT})\n" + _WRITES)
+_GRAY_TAP = "sample(o, decode_uv(ku), decode_uv(key_v[p]))"
+_GRAY_LOOP = "#pragma unroll 4\n  for (int iy = 0; iy < rows; ++iy) {"
+_GRAY_KERNEL = "__global__ void __launch_bounds__(kThreads)\nrender_gray_kernel("
 _LOADS_2 = """      const bool two = i + kJointThreads < n16;
       const uint4 x = va[i], y = vb[i];
       const uint4 x1 = two ? va[i + kJointThreads] : x, y1 = two ? vb[i + kJointThreads] : y;
@@ -109,6 +114,20 @@ ABLATIONS = [
     ("rasterize_keys", "blocks of 16x2 pixels",
      [("ly = lane >> 3", "ly = lane >> 4"), ("lx = lane & 7", "lx = lane & 15"),
       ("by += 4)", "by += 2)"), ("bx += 8)", "bx += 16)")], True),
+    ("render_gray", "as committed", [], True),
+    ("render_gray", "no coverage sweep", [_NO_SWEEP], False),
+    ("render_gray", "no epilogue (the sweep alone)",
+     [("if (x >= o.W) return;", f"if (x >= o.W || !{SKIP_OUT}) return;")], False),
+    ("render_gray", "no texture taps (gray = u + v)",
+     [(_GRAY_TAP, "decode_uv(ku) + decode_uv(key_v[p])")], False),
+    ("render_gray", "pixel loop not unrolled", [(_GRAY_LOOP, _GRAY_LOOP.replace(" 4", " 1"))],
+     True),
+    ("render_gray", "pixel loop unrolled by 16", [(_GRAY_LOOP, _GRAY_LOOP.replace(" 4", " 16"))],
+     True),
+    ("render_gray", "taps by plain loads, not __ldg",
+     [(f"__ldg({r})", f"*({r})") for r in ("row0", "row1", "row0 + 1", "row1 + 1")], True),
+    ("render_gray", "__launch_bounds__(128, 8): at most 64 registers",
+     [(_GRAY_KERNEL, _GRAY_KERNEL.replace("(kThreads)", "(kThreads, 8)"))], True),
     ("joint_entropy", "as committed", [], True),
     ("joint_entropy", "one 16-byte load of each image in flight, not two",
      [(_LOADS_2, "      count_16<kMaskZero>(sm, va[i], vb[i]);"),
@@ -219,6 +238,10 @@ def main() -> int:
              float(K[1, 2]), entry_mod.NEAR, b.tiles_x)
     keys_ref = raster.rasterize_keys_plain(*rargs)
     keys, u, v = (torch.empty_like(x) for x in keys_ref)
+    th, tw = b.tex_hw
+    gargs = (*rargs, b.texture, th, tw, 0.0, b.height, b.width)
+    gray_ref = raster.render_gray_plain(*gargs)
+    gray = torch.empty_like(gray_ref)
     sb, wb = hn.pack_bins(fn.render(Tcw)), hn.pack_bins(fn.warp(frame))
     P = sb.shape[1]
     R = wb.shape[0]
@@ -243,6 +266,11 @@ def main() -> int:
             b.tri_data.data_ptr(), poses.data_ptr(), S, b.tri_data.shape[0], b.capacity,
             b.tiles_x, *rargs[3:8], float((raster.DEPTH_LEVELS - 1) * entry_mod.NEAR),
             keys.data_ptr(), u.data_ptr(), v.data_ptr(), stream), (keys, u, v), keys_ref)],
+        "render_gray": [("main path", lambda lib: lib.nmi_render_gray(
+            b.tri_data.data_ptr(), poses.data_ptr(), S, b.tri_data.shape[0], b.capacity,
+            b.tiles_x, *rargs[3:8], float((raster.DEPTH_LEVELS - 1) * entry_mod.NEAR),
+            b.texture.data_ptr(), b.texture.shape[1], th, tw, 0.0, b.height, b.width,
+            gray.data_ptr(), stream), gray, gray_ref)],
         "joint_entropy": [("main path", lambda lib: lib.nmi_joint_entropy(
             sb.data_ptr(), wb.data_ptr(), S, R, P, hn._inv_n(P), 0, hab.data_ptr(), stream),
             hab, hab_ref)],

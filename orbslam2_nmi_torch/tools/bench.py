@@ -294,7 +294,8 @@ def main(argv=None) -> int:
             f"score {t['score']['median_ms']:.3f}ms per {res['n_pairs']}-pair sweep, medians "
             f"of {REPS} calls by CUDA events; the mode-4 point splat would be "
             f"{t['splat']['median_ms']:.3f}ms; hand-written CUDA kernels: a tiled f32 z-buffer "
-            "rasterizer (B3) and a bilinear texture sampler with the reference's bf16 rounding, "
+            "rasterizer (B3) whose epilogue samples the texture bilinearly with the reference's "
+            "bf16 rounding, "
             "shared-memory 256-bin marginal (B2, one launch for renders and warps) and "
             "256x256 joint (B1) histogram entropies"
             + (f"; {smi}" if smi else "") + ")"),

@@ -75,7 +75,7 @@ TOP = 12
 _CUDA_API = re.compile(r"cu(da)?[A-Z]")
 # the port's hand-written kernels (csrc/*.cu), reported by range apart
 CUDA_KERNELS = ("joint_entropy_kernel", "marginal_entropy_kernel", "rasterize_keys_kernel",
-                "sample_texture_kernel")
+                "render_gray_kernel")
 
 
 def classify(name: str) -> str:

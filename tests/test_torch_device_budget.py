@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 EXPECTED = {
     "fused_step": "tracking_fused_step", "fused_step.upload": "tracking_fused_step",
     "extract_orb": "orb_extraction", "rasterize_keys": "nmi_render",
-    "sample_texture": "nmi_render", "render_mesh_grid": "nmi_render",
+    "render_gray": "nmi_render", "render_mesh_grid": "nmi_render",
     "render_translation_grid": "nmi_render", "render_pointcloud": "nmi_render",
     "render.bin_mesh": "nmi_render", "render.prepare_sweep": "nmi_render",
     "warp_rotation_grid": "nmi_warp", "warp_homographies": "nmi_warp",
@@ -146,7 +146,7 @@ def test_device_ops_land_in_the_innermost_range():
         _Event("add_kernel", True, 2800, 2810, linked=5),
         _Event("mul_kernel", True, 4200, 4220, linked=6),
         _Event("gemm", True, 2300, 2400, corr=502, linked=8, stream=9),
-        _Event("sample_texture_kernel", True, 2500, 2520, corr=503, stream=9),
+        _Event("render_gray_kernel", True, 2500, 2520, corr=503, stream=9),
         _Event("lost", True, 6000, 6005, corr=600, stream=9),  # no launch recorded
         _Event("no_host_op", True, 7000, 7003, linked=99),
         _Event("fused_step", True, 100, 400, annotation=True),  # a device-side annotation
@@ -160,7 +160,7 @@ def test_device_ops_land_in_the_innermost_range():
     assert round(info["device_union_s"] * 1e9) == 300 + 100 + 50 + 10 + 20 + 10 + 20 + 8
     assert info["unattributed_ms_by_stream"] == {"9": 5e-6, "7": 3e-6}
     assert info["cuda_kernels_ms"] == {"rasterize_keys_kernel": {"rasterize_keys": 5e-5},
-                                       "sample_texture_kernel": {"bundle_adjust": 2e-5}}
+                                       "render_gray_kernel": {"bundle_adjust": 2e-5}}
 
 
 def test_traced_records_other_threads():
@@ -221,11 +221,10 @@ def test_bench_sweep_kernels_land_in_render_and_score(cuda_device):
     assert scores.shape == out[0].shape == (27, 27)
     times, info = tdb.device_label_times(prof)
     budget = tdb.budget_from_module_times(times, 1)["by_subsystem_ms"]
-    assert times.get("rasterize_keys", 0) > 0 and times.get("sample_texture", 0) > 0
+    assert times.get("render_gray", 0) > 0 and times.get("rasterize_keys", 0) == 0
     assert times.get("joint_entropy_grid", 0) > 0 and times.get("marginal_entropy_sets", 0) > 0
     where = {k: {tdb.classify(r) for r in v} for k, v in info["cuda_kernels_ms"].items()}
-    assert where == {"rasterize_keys_kernel": {"nmi_render"}, "sample_texture_kernel":
-                     {"nmi_render"}, "joint_entropy_kernel": {"nmi_score"},
+    assert where == {"render_gray_kernel": {"nmi_render"}, "joint_entropy_kernel": {"nmi_score"},
                      "marginal_entropy_kernel": {"nmi_score"}}
     assert budget["nmi_render"] > 0 and budget["nmi_score"] > 0 and budget["nmi_warp"] > 0
     assert info["n_device_ops"] > 0 and info["launch_found_ms"]["not_found"] == 0

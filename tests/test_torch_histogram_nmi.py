@@ -192,30 +192,36 @@ def test_nmi_scores_odd_pixel_count_match_reference(use_background):
     assert int(out.argmax()) == int(ref.argmax())
 
 
-@pytest.mark.parametrize("n_bins", [2, 64, 128, 256, 512])
+@pytest.mark.parametrize("n_bins", [2, 64, 128, 256, 512, 1024])
 def test_nmi_scores_reject_other_bin_counts(n_bins):
     """Up to 256 bins the port scores over `n_bins` as the reference does
     (gray levels clamped to n_bins - 1, grays past the last bin falling into
     it; the kernels count 256 bins, of which the rest stay empty), on inputs
-    in [0, 400], float and packed uint8 alike; 512 bins do not fit in one
-    byte and are rejected."""
+    in [0, 400], float and packed uint8 alike. More bins do not fit in one
+    byte: the port clamps at 255, which on the reference's documented range
+    [0, 255] gives the reference's scores (it clips at n_bins - 1, so no
+    level moves and the extra bins stay empty), with and without background,
+    and equals the port's own 256-bin scores."""
     rng = np.random.default_rng(3)
-    synth = rng.uniform(0, 400, (2, 8, 16)).astype(np.float32)
-    warped = rng.uniform(0, 400, (3, 8, 16)).astype(np.float32)
-    if n_bins > 256:
-        with pytest.raises(ValueError, match="one byte"):
-            th.nmi_scores(torch.from_numpy(synth), torch.from_numpy(warped), n_bins=n_bins)
-        return
+    hi = 400 if n_bins <= 256 else 255
+    synth = rng.uniform(0, hi, (2, 8, 16)).astype(np.float32)
+    warped = rng.uniform(0, hi, (3, 8, 16)).astype(np.float32)
     for use_background in (True, False):
         ref = np.asarray(jh.nmi_scores(jnp.asarray(synth), jnp.asarray(warped), use_pallas=False,
                                        n_bins=n_bins, use_background=use_background))
         out = th.nmi_scores(torch.from_numpy(synth), torch.from_numpy(warped), n_bins=n_bins,
                             use_background=use_background).numpy()
         np.testing.assert_allclose(out, ref, atol=ATOL)
+        if n_bins > 256:
+            np.testing.assert_array_equal(out, th.nmi_scores(
+                torch.from_numpy(synth), torch.from_numpy(warped), n_bins=256,
+                use_background=use_background).numpy())
     u8 = [torch.from_numpy(np.clip(x, 0, 255).astype(np.uint8)) for x in (synth, warped)]
     np.testing.assert_array_equal(
         th.nmi_scores(*u8, n_bins=n_bins).numpy(),
         th.nmi_scores(*(x.float() for x in u8), n_bins=n_bins).numpy())
+    with pytest.raises(ValueError, match="at least 1"):
+        th.nmi_scores(torch.from_numpy(synth), torch.from_numpy(warped), n_bins=0)
 
 
 @pytest.mark.gpu

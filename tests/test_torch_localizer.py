@@ -334,20 +334,11 @@ def test_profile_tool_refuses_without_cuda(monkeypatch, capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("n_bins", [2, 64, 128, 256, 512])
-def test_localizer_rejects_other_bin_counts(n_bins):
-    """`NMIConfig.n_bins` up to 256 reaches the scores: one point-model grid
-    (60x80, 27 renders x the identity warp, grays in [28, 228], so that fewer
-    bins clamp most of them) equals the JAX localizer's within the
-    strategy's score bar; 512 bins are rejected (packed in one byte). The
-    identity warp keeps the warps' parity gap (0.0076 gray levels, which
-    moves pixels across bin edges) out of this test."""
+def _point_grid(n_bins):
+    """One point-model grid of `test_localizer_rejects_other_bin_counts`:
+    (the port's scores, the JAX localizer's)."""
     pts, gray = make_world(40000, seed=7)
     cfg = _cfg(n_bins=n_bins, warp_num=(1, 1, 1))
-    if n_bins > 256:
-        with pytest.raises(ValueError, match="one byte"):
-            _port_loc(cfg, STRAT_CAM, model=(pts, gray))
-        return
     jmodel = jrender.RenderModel(jnp.asarray(pts), jnp.asarray(gray))
     frame = np.asarray(jrender.render_pointcloud(
         jmodel, jnp.eye(4), jnp.asarray(STRAT_CAM.K), 60, 80, 1.0, 30.0, 3))
@@ -355,10 +346,29 @@ def test_localizer_rejects_other_bin_counts(n_bins):
     port = _port_loc(cfg, STRAT_CAM, model=(pts, gray))
     T = np.eye(4, dtype=np.float32)
     T[0, 3] = 0.3
-    want = ref.evaluate_grid(jnp.asarray(frame), T, ref.initial_kernel)
-    got = port.evaluate_grid(torch.from_numpy(frame), T, port.initial_kernel)
+    return (port.evaluate_grid(torch.from_numpy(frame), T, port.initial_kernel),
+            np.asarray(ref.evaluate_grid(jnp.asarray(frame), T, ref.initial_kernel)))
+
+
+@pytest.mark.parametrize("n_bins", [2, 64, 128, 256, 512])
+def test_localizer_rejects_other_bin_counts(n_bins):
+    """`NMIConfig.n_bins` reaches the scores: one point-model grid (60x80,
+    27 renders x the identity warp, grays in [28, 228], so that fewer bins
+    clamp most of them) equals the JAX localizer's within the strategy's
+    score bar. At 512 bins the port packs the levels in one byte, clamped at
+    255; on renders and frames in [0, 255] the reference's clip at 511 moves
+    no level either. The identity warp keeps the warps' parity gap (0.0076
+    gray levels, which moves pixels across bin edges) out of this test."""
+    got, want = _point_grid(n_bins)
     np.testing.assert_allclose(got, want, atol=STRATEGY_NMI_ATOL, rtol=0)
     assert int(got.argmax()) == int(want.argmax())
+
+
+def test_localizer_512_bins_scores_like_256():
+    """A localizer built with 512 bins scores a sweep as one built with 256,
+    bit for bit: the levels of its [0, 255] renders and frame fit one byte
+    either way (fault C8: the port raised here, the reference scores)."""
+    np.testing.assert_array_equal(_point_grid(512)[0], _point_grid(256)[0])
 
 
 @pytest.mark.parametrize("case", ["point_grid", "mesh_strategy"])

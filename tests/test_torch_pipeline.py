@@ -12,6 +12,10 @@ package run on the same state where the outcome is deterministic.
     threads and frequent thread switches;
   * the worker thread processes the reduced mapping scene's keyframe with no
     error, and the fixed NMI keyframes keep their poses bit for bit;
+  * a rejected local BA is dumped with the JAX package's keys (its
+    divergence dump);
+  * tracking with asynchronous mapping keeps its P95 frame time under 4 s
+    (`tests/test_global_ba_async.py:136`);
   * on the card: the tracking step is captured in a CUDA graph
     while the worker runs local BAs on its own stream, and a replay equals
     the eager step bit for bit.
@@ -20,8 +24,8 @@ package run on the same state where the outcome is deterministic.
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import (cuda_device, initialize_at_true_poses,  # noqa: F401
-                                 mapping_scene)
+from torch_port_fixtures import (cuda_device, e2e_config, e2e_frames,  # noqa: F401
+                                 initialize_at_true_poses, mapping_scene)
 
 from orbslam2_nmi_torch import config as tconfig
 from orbslam2_nmi_torch.slam import checkpoint as tck
@@ -30,6 +34,7 @@ from orbslam2_nmi_torch.slam.fused_track import FusedTrackStep
 from orbslam2_nmi_torch.slam.local_mapping import LocalMapper
 from orbslam2_nmi_torch.slam import map_store as tms
 from orbslam2_nmi_torch.slam.pipeline import MappingPipeline
+from orbslam2_nmi_torch.slam.system import SLAMSystem
 from orbslam2_nmi_torch.solvers.local_ba import BAResult
 from orbslam2_nmi_tpu import config as jconfig
 from orbslam2_nmi_tpu.slam import local_mapping as jlm
@@ -113,6 +118,51 @@ def test_gba_apply_propagates_to_new_keyframes_and_points():
     np.testing.assert_allclose(tm.kf_Tcw[k3], expect, atol=1e-5)
     corr = np.linalg.inv(tm.kf_Tcw[k3]) @ T3
     np.testing.assert_allclose(tm.mp_pos[p_new], (corr @ [1.0, 1.0, 8.0, 1.0])[:3], atol=1e-5)
+
+
+def _rejected_local_ba(conf, ms, lm_mod, ba_mod, env, out_dir, monkeypatch, **kw):
+    """A local BA of keyframe 2 of the small world whose solve marks every
+    observation an outlier (the divergence guard rejects it), with `env`
+    naming `out_dir`. Returns the dump's arrays and the poses before and
+    after."""
+    m, _ = _small_ba_world(conf, ms)
+    real = ba_mod.bundle_adjust
+
+    def all_outliers(prob, **args):
+        res = real(prob, **args)
+        return res._replace(obs_inlier=res.obs_inlier & False)
+
+    monkeypatch.setattr(ba_mod, "bundle_adjust", all_outliers)
+    monkeypatch.setenv(env, str(out_dir))
+    before = m.kf_Tcw.copy()
+    lm_mod.LocalMapper(_cfg(conf), m, **kw).local_bundle_adjust(2)
+    (path,) = out_dir.glob("bad_ba_*.npz")
+    with np.load(path) as z:
+        return path.name, dict(z), before, m.kf_Tcw.copy()
+
+
+def test_rejected_local_ba_is_dumped_like_reference(tmp_path, monkeypatch):
+    """A local BA that marks more than 80 % of at least 50 observations as
+    outliers is discarded and, with ORBSLAM2_NMI_TORCH_DUMP_BAD_BA set,
+    written to `bad_ba_{O}.npz` with the JAX package's keys (O, new_cams,
+    chi2 and the problem's fields, its ORBSLAM2_NMI_TPU_DUMP_BAD_BA dump),
+    the problem's arrays equal to the JAX package's on the same map."""
+    from orbslam2_nmi_torch.slam import local_mapping as tlm
+    from orbslam2_nmi_torch.solvers import local_ba as tba
+
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    jname, jz, _, _ = _rejected_local_ba(jconfig, jms, jlm, jba, "ORBSLAM2_NMI_TPU_DUMP_BAD_BA",
+                                         tmp_path / "jax", monkeypatch)
+    tname, tz, before, after = _rejected_local_ba(
+        tconfig, tms, tlm, tba, tlm.DUMP_BAD_BA, tmp_path / "port", monkeypatch, device="cpu")
+    assert tname == jname == f"bad_ba_{int(jz['O'])}.npz" and int(tz["O"]) >= 50
+    assert set(tz) == set(jz) == {"O", "new_cams", "chi2", *tba.BAProblem._fields}
+    for k in tba.BAProblem._fields:
+        assert tz[k].shape == jz[k].shape and tz[k].dtype == jz[k].dtype, k
+        np.testing.assert_array_equal(tz[k], jz[k], err_msg=k)
+    assert tz["new_cams"].shape == jz["new_cams"].shape and tz["chi2"].shape == jz["chi2"].shape
+    np.testing.assert_array_equal(after, before)  # the rejected result never landed
 
 
 class _System:
@@ -200,6 +250,29 @@ def test_worker_maps_the_scene():
         assert s.map.version > 0
     finally:
         s.shutdown()
+
+
+def test_async_loop_closure_does_not_stall_tracking(tmp_path):
+    """tests/test_global_ba_async.py:136 on the port: the 25-frame seed-3
+    point world (320x240, 400 features, no NMI) tracked by `SLAMSystem` with
+    asynchronous mapping on the CPU. Tracking's frame time stays bounded
+    around the keyframes that start mapping and loop checks: P95 under 4.0 s
+    after the first 8 frames (the reference's generous bar; the stall it
+    guards against is an inline global BA's multi-second one)."""
+    _, frames, poses = e2e_frames()
+    sys_ = SLAMSystem(e2e_config(), use_nmi=False, output_dir=str(tmp_path), async_mapping=True,
+                      device="cpu")
+    try:
+        assert sys_.pipeline is not None
+        sys_.set_init_poses(poses[0], poses[4])
+        for i, img in enumerate(frames):
+            sys_.track_monocular(img, i / 10.0)
+        assert sys_.pipeline.flush(120)
+        assert not sys_.pipeline.errors(), sys_.pipeline.errors()[0]
+        ft = np.array(sys_.frame_times[8:])
+        assert np.quantile(ft, 0.95) < 4.0, f"tracking stalled: P95 {np.quantile(ft, 0.95):.2f} s"
+    finally:
+        sys_.shutdown()
 
 
 @pytest.mark.gpu

@@ -177,6 +177,41 @@ def test_non_finite_point_gives_no_pose(value):
     assert np.isnan(out.Tcw.numpy()).any() and np.isnan(np.asarray(ref.Tcw)).any()
 
 
+def test_eigen_solves_survive_what_cuda_refused(monkeypatch):
+    """ROADMAP C9: CUDA's batched `eigh` raised on one EPnP hypothesis of a
+    relocalization's batch. A hypothesis whose normal matrix overflows
+    float32 is returned as NaN beside the others' unchanged poses (the
+    reference's eigen-solve gives NaN there), and a batch whose eigen-solve
+    fails to converge is solved again in float64, within the minimal case's
+    bar of its float32 pose."""
+    K, pw, uv, w = _minimal_scene()
+    W = np.stack([w, w[::-1]])
+    T = tp.epnp_pose(K, *_t(pw, uv, W))
+    gram = tp._gram64
+
+    def overflowing(x):  # the first hypothesis's normal matrix overflows
+        g = gram(x)
+        g[0, 3, 3] = float("inf")
+        return g
+
+    monkeypatch.setattr(tp, "_gram64", overflowing)
+    T_bad = tp.epnp_pose(K, *_t(pw, uv, W))
+    assert torch.isnan(T_bad[0]).all() and torch.equal(T_bad[1], T[1])
+    monkeypatch.setattr(tp, "_gram64", gram)
+
+    eigh = torch.linalg.eigh
+
+    def refusing(M, *args, **kw):  # a failure to converge, on every float32 batch
+        if M.dtype == torch.float32:
+            raise torch.linalg.LinAlgError("linalg.eigh: failed to converge")
+        return eigh(M, *args, **kw)
+
+    monkeypatch.setattr(torch.linalg, "eigh", refusing)
+    T64 = tp.epnp_pose(K, *_t(pw, uv, W))
+    assert T64.dtype == torch.float32
+    np.testing.assert_allclose(T64.numpy(), T.numpy(), atol=1e-4, rtol=0)
+
+
 @pytest.mark.gpu
 def test_non_finite_hypothesis_on_card(cuda_device):  # noqa: F811
     """The same RANSAC on the card: no error, the CPU's inliers. Without the

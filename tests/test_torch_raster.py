@@ -277,32 +277,88 @@ def test_wrappers_validate_inputs():
     tri = torch.zeros(2, 16, 100)
     with pytest.raises(ValueError):
         tr.rasterize_keys(tri, torch.zeros(1, 12), 100, 1.0, 1.0, 0.0, 0.0, 1.0, 1)
-    k = torch.zeros(1, 1, 16, 128, dtype=torch.int32)
-    u = torch.zeros(1, 1, 16, 128)
-    with pytest.raises(ValueError):
-        tr.sample_texture(k, u, u, torch.zeros(8, 8), 16, 8, 0.0)
+    tri = torch.zeros(2, 16, 128)
+    good = (tri, torch.zeros(1, 12), 128, 1.0, 1.0, 0.0, 0.0, 1.0, 2)
+    tail = (torch.zeros(8, 8), 8, 8, 0.0, 16, 256)
+    assert tr.render_gray(*good, *tail).shape == (1, 16, 256)
+    for bad in (
+        (*good[:-1], 3, *tail),  # 2 tiles are no rows of 3
+        (*good, torch.zeros(8, 8), 16, 8, 0.0, 16, 256),  # texture smaller than (th, tw)
+        (*good, torch.zeros(8), 8, 8, 0.0, 16, 256),  # not a 2-D texture
+        (*good, *tail[:-2], 17, 256),  # more rows than the tiles hold
+        (*good, *tail[:-2], 16, 257),  # more columns
+        (*good, *tail[:-2], 0, 256),  # an empty image
+        (tri, torch.zeros(0, 12), *good[2:], *tail),  # no pose
+    ):
+        with pytest.raises(ValueError):
+            tr.render_gray(*bad)
+
+
+def test_render_gray_matches_reference():
+    """`render_gray` on CPU tensors against the JAX package's
+    `render_mesh_grid` (interpret mode, windowed sampler) on the entry's toy
+    mesh with 9 translation candidates, at 60x250: neither side a multiple of
+    the 16x128 tile, so the last tile row and column are cropped. Gray equal
+    to 1e-4 wherever both packages' u and v are equal (the module
+    docstring's bar), and bit for bit `render_mesh_grid`, which calls it."""
+    h, w = 60, 250
+    Kt = tentry.camera_K(h, w)
+    Tcw = np.eye(4, dtype=np.float32)
+    jb = jr.bin_mesh(tentry._toy_mesh(), Tcw, Kt, h, w, 5.0, 40.0,
+                     max_offset=(0.2, 0.2, 0.5), device_arrays=False)
+    tb = convert.binned_from_numpy(jb._asdict(), "cpu")
+    assert (tb.tiles_y * tr.TILE_H, tb.tiles_x * tr.TILE_W) == (64, 256)
+    offsets = np.array(jrender.translation_grid_offsets((3, 3, 1), (0.2, 0.2, 0.5)), np.float32)
+    args = (tb.tri_data, torch.from_numpy(_poses(Tcw, offsets)), tb.capacity, float(Kt[0, 0]),
+            float(Kt[1, 1]), float(Kt[0, 2]), float(Kt[1, 2]), 5.0, tb.tiles_x)
+    img = tr.render_gray(*args, tb.texture, *tb.tex_hw, 0.0, h, w)
+    assert img.shape == (9, h, w) and torch.isfinite(img).all() and (img > 0).float().mean() > 0.5
+    torch.testing.assert_close(img, tr.render_mesh_grid(tb, torch.from_numpy(Tcw), Kt,
+                                                        torch.from_numpy(offsets), 5.0, 40.0),
+                               atol=0, rtol=0)
+    jk, ju, jv = (np.asarray(x) for x in jr._rasterize_keys(
+        jnp.asarray(jb.tri_data), jnp.asarray(_poses(Tcw, offsets)), jb.capacity,
+        tiles_x=jb.tiles_x, interpret=True, fx=args[3], fy=args[4], cx=args[5], cy=args[6],
+        near=5.0))
+    tk, tu, tv = tr.rasterize_keys(*args)
+    same = ((ju == tu.numpy()) & (jv == tv.numpy()) & ((jk == SENT) == (tk.numpy() == SENT)))
+    same = tr._untile(torch.from_numpy(same), 9, tb.tiles_y, tb.tiles_x, h, w).numpy()
+    assert same.mean() > 0.99
+    ref = _jax_render(jb, Tcw, Kt, offsets, 5.0, 40.0)
+    np.testing.assert_allclose(img.numpy()[same], ref[same], atol=1e-4)
+
+
+def _assert_render_gray_on_card(args):
+    """`render_gray` bit for bit the sampler's plain version on the keys
+    epilogue's outputs (the same z-buffer), and equal to the all-plain
+    composition on all but 1e-4 of pixels (0 expected: chip_smoke.py's
+    RASTER_MISMATCH_FRAC)."""
+    d = kernel_cases.render_gray_gaps(args)
+    assert d["exact"] == 0.0
+    assert d["mismatch"] <= 1e-4
 
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(cuda_device):
-    """B3 and the sampler against their plain versions on the card: both are
-    f32 with the same operation order (no FMA contraction), so bit for bit."""
-    h, w = 540, 960
-    Kt = tentry.camera_K(h, w)
-    tb = tr.bin_mesh(tentry._toy_mesh(), np.eye(4, dtype=np.float32), Kt, h, w, 5.0, 40.0,
-                     max_offset=(0.2, 0.2, 0.5), device=cuda_device)
-    offsets = torch.tensor([[0.0, 0, 0], [0.2, -0.2, 0.5]], device=cuda_device)
-    poses = tr.grid_poses(torch.eye(4, device=cuda_device), offsets)
-    args = (tb.tri_data, poses, tb.capacity, float(Kt[0, 0]), float(Kt[1, 1]),
-            float(Kt[0, 2]), float(Kt[1, 2]), 5.0, tb.tiles_x)
-    k = tr.rasterize_keys(*args)
-    p = tr.rasterize_keys_plain(*args)
-    for a, b in zip(k, p):
-        torch.testing.assert_close(a, b, atol=0, rtol=0)
-    th, tw = tb.tex_hw
-    g = tr.sample_texture(*k, tb.texture, th, tw, 0.0)
-    torch.testing.assert_close(g, tr.sample_texture_plain(*k, tb.texture, th, tw, 0.0),
-                               atol=0, rtol=0)
+    """B3's keys epilogue against its plain version and its gray epilogue
+    (`render_gray`) against the two bars of `_assert_render_gray_on_card`, on
+    the card: f32 with the same operation order (no FMA contraction), so bit
+    for bit, at 960x540 and at 270x475, which crops the last tile row and
+    column."""
+    for h, w in ((540, 960), (270, 475)):
+        Kt = tentry.camera_K(h, w)
+        tb = tr.bin_mesh(tentry._toy_mesh(), np.eye(4, dtype=np.float32), Kt, h, w, 5.0, 40.0,
+                         max_offset=(0.2, 0.2, 0.5), device=cuda_device)
+        offsets = torch.tensor([[0.0, 0, 0], [0.2, -0.2, 0.5]], device=cuda_device)
+        poses = tr.grid_poses(torch.eye(4, device=cuda_device), offsets)
+        args = (tb.tri_data, poses, tb.capacity, float(Kt[0, 0]), float(Kt[1, 1]),
+                float(Kt[0, 2]), float(Kt[1, 2]), 5.0, tb.tiles_x)
+        k = tr.rasterize_keys(*args)
+        p = tr.rasterize_keys_plain(*args)
+        for a, b in zip(k, p):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+        for bg in (0.0, 37.25):
+            _assert_render_gray_on_card((*args, tb.texture, *tb.tex_hw, bg, h, w))
 
 
 def _covered_outside_box(tri_data, poses, fx, fy, cx, cy, near, tiles_x):
@@ -384,8 +440,12 @@ def test_bounding_box_cull_is_exact(case):
 @pytest.mark.parametrize("case", kernel_cases.RASTER_CASES)
 def test_rasterizer_adversarial_on_card(cuda_device, case):
     """B3 against its plain version on the adversarial cases: hit mask, u and v
-    equal on all but 1e-4 of pixels (0 expected), depth within 2 levels."""
+    equal on all but 1e-4 of pixels (0 expected), depth within 2 levels; and
+    `render_gray` on the same case (a seeded texture, a background no texel
+    takes, an image that crops the last tile row and column) within the bars
+    of `_assert_render_gray_on_card`."""
     args = kernel_cases.raster_case(case, cuda_device)
     d = kernel_cases.raster_mismatch(tr.rasterize_keys(*args), tr.rasterize_keys_plain(*args))
     assert max(d["mask"], d["u"], d["v"]) <= 1e-4
     assert d["depth"] <= 2
+    _assert_render_gray_on_card(kernel_cases.render_case(case, cuda_device))
