@@ -106,7 +106,26 @@ Run from the root of a checkout. It
      slower than its mapper, as the reference's record was taken at 1.35
      frames/s, and holds the record's bars there: at least 21 NMI anchors
      (half of the reference's 42), 508 frames tracked, ATE-RMSE 0.0625 m;
- 11. the tools (`tools/bench.py`, `replay_bench.py`, `device_budget.py`) and
+ 11. the settings-file entry, the user's front door: writes the 120-frame
+     domain-gap prefix of the seed-1 circuit to disk in the reference's
+     formats (`entry.write_settings_scene`: a settings YAML at threshold 0.1
+     with NMI.Init1/Init2, the terrain as an OBJ with its texture and as an
+     XYZ pointcloud with an offset file, the frames in the ETH layout); runs
+     `run_replay.main --settings --sequence` in-process (the classic path,
+     synchronous mapping, NMI from the OBJ; launch counts set to 0 just
+     before and read after): the localizer holds the OBJ's mesh, B1, B2 and
+     `render_gray` launched, the first sweep within SCORE_ATOL of its
+     all-plain rescore with the same argmax, at least 108 of 120 tracked,
+     the saved trajectory's unaligned ATE-RMSE at most 0.0625 m, at least
+     one anchor; prints the ms a frame; holds the OBJ's mesh equal to the
+     world's (corner for corner, one vertex relabelling) and one init sweep
+     of `SLAMSystem.from_yaml` against `replay_bench.build_system`'s
+     in-memory mesh, and the XYZ's at render mode 4 against the in-memory
+     pointcloud (SCORE_ATOL, the same argmax); drives
+     `tools/circuit_diag.run_diag` classic and pipelined, NMI off,
+     synchronous mapping, over the clean prefix's first 80 frames (at least
+     68 tracked, online error p95 at most 0.0625 m each);
+ 12. the tools (`tools/bench.py`, `replay_bench.py`, `device_budget.py`) and
      the headless visualization (`viz/replay.py`), at 960x540: the bench
      sweep on the reference bench's scene (71,442 faces, a 512x512 texture,
      27 x 27; medians and spreads by CUDA events, evaluations/s, one launch
@@ -122,7 +141,7 @@ Run from the root of a checkout. It
      the replayed step in tracking_fused_step, the idle share); the async
      replay's last frame drawn, its map plotted, and the debug overlays of
      one `relocalize_strategy` named by each sweep's argmax;
- 12. the sharded paths (`orbslam2_nmi_torch/parallel/`) on worlds of ranks
+ 13. the sharded paths (`orbslam2_nmi_torch/parallel/`) on worlds of ranks
      spawned from this process (`MC_WORLDS`): a NCCL world of one rank on
      cuda:0, and worlds of 2 and 4 gloo ranks sharing the card (a check of
      the partition, pads included, not a scaling figure), each on four
@@ -134,9 +153,10 @@ Run from the root of a checkout. It
      B1, B2 and `render_gray` once a mesh grid; the sharded and the
      unsharded call timed in turns in the one-rank world; then
      `entry.dryrun_multichip(2)` on two gloo ranks;
- 13. prints a JSON line of the step times, one of the localizer's, one of the
+ 14. prints a JSON line of the step times, one of the localizer's, one of the
      tracking phase's, one of the mapping phase's, one of the loop phase's,
-     one of the system phase's, one of the tools phase's, one of the
+     one of the system phase's, one of the settings phase's, one of the
+     tools phase's, one of the
      multichip phase's, one JSON line listing the kernels, then the final
      JSON line {"ok": true, ...}.
 The grid step and the localizer's case (b) also run with TF32 turned on for
@@ -1851,6 +1871,287 @@ def system_phase(dev, smi, check):
     return rec
 
 
+# The settings phase: the user's front door, `run_replay --settings X.yaml
+# --sequence DIR` (mono_ETH's), on a scene written to disk in the reference's
+# formats by `entry.write_settings_scene`: the domain-gap prefix of the
+# seed-1 520-frame circuit (SET_FRAMES) in the ETH layout, its settings YAML
+# (threshold 0.1, NMI.Init1/Init2 the true Twc of frames 0 and 8), the
+# terrain as an OBJ with its texture and as an XYZ pointcloud with an offset
+# file. The settings file cannot set what the replay's configuration sets
+# beyond the reference's keys (coarse_scale 2, 512 keyframes): this drive
+# runs the reference's full-resolution sweeps and the default capacities.
+SET_DIR = os.path.join("build", "chip_smoke_settings")  # gitignored
+# The drive is cut to the prefix's first 120 frames (the NMI init and 50-odd
+# keyframe sweeps): the classic path maps a keyframe nearly every frame in
+# line, ~1 s a frame, and all 160 took the phase to 264 s of a ~180 s budget
+# (PERF.md).
+SET_FRAMES = 120
+SET_MIN_TRACKED = 108  # frames 0-7 come before initialization; 4 fewer than the rest
+SET_ATE_M = 0.0625  # PERF.md §2's bar (SYS_ATE_M); DOMAIN_GAP_r04.json: 0.0403 m
+SET_DIAG_FRAMES = 80  # circuit_diag's drives: the clean prefix's first 80 frames
+SET_DIAG_MIN_TRACKED = 68  # frames 0-7 come before initialization; 4 fewer than the rest
+SET_DIAG_P95_M = 0.0625
+
+
+def mesh_relabeling(loaded, mesh):
+    """The vertex map that makes `loaded` (an OBJ read by `load_obj`, which
+    numbers vertices by first use) equal `mesh` array for array:
+    `loaded.vertices[perm] == mesh.vertices` and the same for the UVs, with
+    `perm[mesh.faces] == loaded.faces`. Raises where no such map exists."""
+    import numpy as np
+
+    if loaded.faces.shape != mesh.faces.shape or len(loaded.vertices) != len(mesh.vertices):
+        raise AssertionError(f"{loaded.faces.shape} faces, {len(loaded.vertices)} vertices "
+                             f"against {mesh.faces.shape}, {len(mesh.vertices)}")
+    perm = np.full(len(mesh.vertices), -1, np.int64)
+    perm[mesh.faces.ravel()] = loaded.faces.ravel()
+    if (perm < 0).any() or not np.array_equal(perm[mesh.faces], loaded.faces) \
+            or len(np.unique(perm)) != len(perm):
+        raise AssertionError("the faces are not one relabelling of the mesh's")
+    for name in ("vertices", "uvs"):
+        if not np.array_equal(getattr(loaded, name)[perm], getattr(mesh, name)):
+            raise AssertionError(f"the relabelled {name} differ")
+    return perm
+
+
+def settings_phase(dev, smi, check):
+    """Phase 11: the settings-file entry (see the SET_* constants): (a) the
+    scene written; (b) `run_replay.main` on it in-process, the classic path
+    with synchronous mapping and NMI from the OBJ; (c) the OBJ's mesh against
+    the in-memory one, and one NMI init sweep of a `SLAMSystem.from_yaml`
+    against the same sweep of `replay_bench.build_system`'s in-memory mesh;
+    (d) the same for the XYZ pointcloud at render mode 4; (e)
+    `circuit_diag.run_diag`'s classic and pipelined drives with NMI off and
+    synchronous mapping. Returns its record for the JSON line."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch import entry, kernels, run_replay
+    from orbslam2_nmi_torch.config import load_yaml_config
+    from orbslam2_nmi_torch.io import model_loader
+    from orbslam2_nmi_torch.ops import render
+    from orbslam2_nmi_torch.slam import system as system_mod
+    from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
+    from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
+    from orbslam2_nmi_torch.tools import circuit_diag, replay_bench
+
+    t_phase = time.perf_counter()
+    rec = {}
+
+    def center(T):
+        return -T[:3, :3].T.astype(np.float64) @ T[:3, 3].astype(np.float64)
+
+    # --- (a) the scene on disk ------------------------------------------------------
+    print(f"settings: the {SET_FRAMES}-frame domain-gap prefix of the seed-1 circuit, written "
+          f"to {SET_DIR} in the reference's formats (entry.write_settings_scene)")
+    t = time.perf_counter()
+    sc = entry.write_settings_scene(SET_DIR, SET_FRAMES, n_total=520, domain_gap=True,
+                                    layout="eth", device=dev)
+    rec["write_s"] = time.perf_counter() - t
+    cfg = load_yaml_config(sc.settings)
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in (
+        sc.settings, cfg.nmi.model_obj_path, cfg.nmi.model_texture_path,
+        cfg.nmi.model_cloud_path, cfg.nmi.model_offset_path)}
+    print(f"  written in {rec['write_s']:.1f} s: {len(os.listdir(sc.sequence)) - 1} frames, "
+          f"{len(sc.world.mesh.faces)} faces, {len(sc.cloud.points)} cloud points; bytes {sizes}"
+          f"  [{smi}]")
+    check((cfg.camera.width, cfg.camera.height, cfg.nmi.threshold, cfg.nmi.offset,
+           cfg.nmi.render_mode, cfg.nmi.coarse_scale, cfg.orb.n_features)
+          == (960, 540, 0.1, 8, 1, 1, 2000),
+          "the settings file: 960x540, threshold 0.1, offset 8, the textured mesh (mode 1), "
+          "full-resolution sweeps, 2000 features")
+
+    # --- (b) run_replay --settings --sequence, in-process ------------------------------
+    print(f"settings: run_replay.main --settings --sequence --max-frames {SET_FRAMES} (classic "
+          "path, synchronous mapping, NMI from the OBJ)")
+    built, first = [], {}
+
+    class Recorded(system_mod.SLAMSystem):
+        """The replay's system, recorded: its first NMI sweep is re-scored
+        all-plain, its keyframe sweeps are kept (`circuit_diag.record_sweeps`)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+            self.sweeps = circuit_diag.record_sweeps(self, sc.poses)
+            loc = self.localizer
+            if loc is None:
+                return
+            evaluate = loc.evaluate_grid
+
+            def rec_grid(frame, Tcw, kernel, scale=1):
+                scores = evaluate(frame, Tcw, kernel, scale)
+                if not first:
+                    first.update(zip(("d", "am", "pm"), plain_rescore(
+                        loc, frame, Tcw, kernel, scale, scores)[:3]),
+                        shape=scores.shape, scale=scale)
+                return scores
+
+            loc.evaluate_grid = rec_grid
+
+    out_dir = os.path.join(SET_DIR, "output")
+    args = ["--settings", sc.settings, "--sequence", sc.sequence, "--output", out_dir,
+            "--max-frames", str(SET_FRAMES)]
+    printed = io.StringIO()
+    system_mod.SLAMSystem, original = Recorded, system_mod.SLAMSystem
+    try:
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = run_replay.main(args)
+        torch.cuda.synchronize(dev)
+        rec["replay_s"] = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        system_mod.SLAMSystem = original
+    print("  " + printed.getvalue().strip().replace("\n", "\n  "))
+    check(rc == 0 and len(built) == 1, f"run_replay.main returned {rc}")
+    system = built[0]
+    log = open(os.path.join(out_dir, "_log.txt")).read()
+    check(system.localizer is not None and system.localizer.mesh is not None
+          and "NMI disabled" not in log,
+          "the system's localizer holds the OBJ's mesh (the 'NMI model not found' branch not "
+          "taken)")
+    print(f"  launches over the drive: {launches}")
+    check(all(launches[k] > 0 for k in ("render_gray", "joint_entropy", "marginal_entropy"))
+          and launches["rasterize_keys"] == 0,
+          "render_gray, B1 and B2 launched on the settings path, B3's keys epilogue never")
+    print(f"  first NMI sweep {first.get('shape')} at scale {first.get('scale')}: max |kernels - "
+          f"all-plain| {first.get('d')}, argmax {first.get('am')} vs {first.get('pm')}")
+    check(first and first["d"] <= SCORE_ATOL and first["am"] == first["pm"],
+          f"the first NMI sweep within {SCORE_ATOL} of its all-plain rescore, the same argmax")
+    m = re.search(r"tracked (\d+)/(\d+) frames", printed.getvalue())
+    n_ok, n_run = int(m.group(1)), int(m.group(2))
+    rows = [ln.replace(",", " ").split() for ln in open(os.path.join(out_dir,
+                                                                     "FullTrajectory.txt"))]
+    ids = np.array([int(r[0]) for r in rows])
+    est = np.array([[float(x) for x in r[-7:-4]] for r in rows])
+    gt = np.array([center(sc.poses[i]) for i in ids])
+    err = np.linalg.norm(est - gt, axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    anchors = [w for w in system.sweeps if w["relocalized"]]
+    with system.map.lock:
+        vk = system.map.valid_keyframe_indices()
+        kf = [int(f) for f in system.map.kf_frame_id[vk]]
+    ft = np.asarray(system.frame_times) * 1e3
+    n_nmi_log = log.count(": NMI ok")
+    rec["replay"] = dict(
+        tracked=n_ok, frames=n_run, keyframes=len(kf), ate_rmse_m=ate,
+        err_p50_m=float(np.median(err)), err_p95_m=float(np.quantile(err, 0.95)),
+        err_max_m=float(err.max()), sweeps=len(system.sweeps), anchors=len(anchors),
+        anchor_frames=[w["frame"] for w in anchors], launches=launches,
+        frame_ms=dict(p50=float(np.median(ft)), p95=float(np.quantile(ft, 0.95)),
+                      max=float(ft.max()), mean=float(ft.mean())),
+        first_sweep=dict(first, shape=list(first["shape"])), replay_s=rec["replay_s"])
+    print(f"  {n_ok} of {n_run} tracked, {len(kf)} keyframes surviving; unaligned ATE-RMSE of "
+          f"FullTrajectory's {len(rows)} frames {ate:.4f} m (p50 {np.median(err):.4f}, p95 "
+          f"{np.quantile(err, 0.95):.4f}, max {err.max():.4f}); {len(system.sweeps)} keyframe NMI "
+          f"sweeps, {len(anchors)} anchored at frames {rec['replay']['anchor_frames']} ("
+          f"{n_nmi_log} 'NMI ok' lines with the latches); ms a frame (track_monocular, host "
+          f"clock) p50 {np.median(ft):.1f}, p95 {np.quantile(ft, 0.95):.1f}, max {ft.max():.1f}, "
+          f"mean {ft.mean():.1f}; the drive {rec['replay_s']:.1f} s  [{smi}]")
+    check(n_run == SET_FRAMES and n_ok >= SET_MIN_TRACKED,
+          f"at least {SET_MIN_TRACKED} of {SET_FRAMES} frames tracked ({n_ok})")
+    check(ate <= SET_ATE_M, f"unaligned ATE-RMSE {ate:.4f} <= {SET_ATE_M} m")
+    check(len(anchors) >= 1, f"at least one NMI anchor landed ({len(anchors)})")
+    built.clear()
+    del system
+
+    # --- (c) the file-built mesh against the in-memory one ---------------------------
+    print("settings: the OBJ's model against the world's, and one NMI init sweep of "
+          "SLAMSystem.from_yaml against replay_bench.build_system's in-memory mesh")
+    mesh = sc.world.mesh
+    loaded = model_loader.load_obj(cfg.nmi.model_obj_path, cfg.nmi.model_texture_path)
+    perm = mesh_relabeling(loaded, mesh)
+    check(np.array_equal(loaded.texture_gray, mesh.texture_gray)
+          and np.array_equal(loaded.vertices[loaded.faces], mesh.vertices[mesh.faces])
+          and np.array_equal(loaded.uvs[loaded.faces], mesh.uvs[mesh.faces]),
+          f"load_obj's mesh is the world's: {len(loaded.faces)} faces corner for corner, the "
+          f"texture bit for bit, the vertices one relabelling ({int((perm != np.arange(len(perm))).sum())} "
+          "renumbered by first use)")
+    frame0 = sc.frames[0].float()
+    yaml_sys = system_mod.SLAMSystem.from_yaml(sc.settings, device=dev,
+                                               output_dir=os.path.join(SET_DIR, "from_yaml"))
+    mem_sys = replay_bench.build_system(sc.world, cfg.camera.width, cfg.camera.height,
+                                        threshold=0.1, async_mapping=False,
+                                        output_dir=os.path.join(SET_DIR, "in_memory"), device=dev)
+    try:
+        T1 = yaml_sys.tracker._init_T1
+        kernel = sk.initial_kernel_for_init(yaml_sys.localizer.initial_kernel)
+        s_yaml = yaml_sys.localizer.evaluate_grid(frame0, T1, kernel)
+        s_mem = mem_sys.localizer.evaluate_grid(frame0, T1, kernel)
+    finally:
+        yaml_sys.shutdown()
+        mem_sys.shutdown()
+    d_mesh = float(np.abs(s_yaml - s_mem).max())
+    print(f"  init sweep {s_yaml.shape} at the YAML's Init1: max |from_yaml - in-memory| "
+          f"{d_mesh}, argmax {int(s_yaml.argmax())} vs {int(s_mem.argmax())}, best "
+          f"{float(s_yaml.max()):.5f}; the init pose's distance to frame 0's truth "
+          f"{float(np.linalg.norm(center(T1) - center(sc.poses[0]))):.2e} m")
+    check(d_mesh <= SCORE_ATOL and int(s_yaml.argmax()) == int(s_mem.argmax()),
+          f"the OBJ's init sweep equals the in-memory mesh's within {SCORE_ATOL} ({d_mesh}), "
+          "the same argmax")
+
+    # --- (d) the XYZ pointcloud at render mode 4 ----------------------------------------
+    print("settings: the XYZ pointcloud and its offset file at render mode 4")
+    cfg4 = cfg.replace(nmi=dataclasses.replace(cfg.nmi, render_mode=4))
+    pc_sys = system_mod.SLAMSystem(cfg4, device=dev, output_dir=os.path.join(SET_DIR, "xyz"))
+    try:
+        loc4 = pc_sys.localizer
+        check(loc4 is not None and loc4.mesh is None and loc4.model is not None,
+              "render mode 4 loads the pointcloud, no mesh")
+        d_pts = float((loc4.model.points.cpu() - torch.from_numpy(sc.cloud.points)).abs().max())
+        d_gray = float((loc4.model.gray.cpu() - torch.from_numpy(sc.cloud.gray)).abs().max())
+        mem4 = NMILocalizer(cfg4.nmi, cfg4.camera, render.model_from_pointcloud(sc.cloud, dev),
+                            device=dev)
+        s_file = loc4.evaluate_grid(frame0, T1, kernel)
+        s_mem4 = mem4.evaluate_grid(frame0, T1, kernel)
+    finally:
+        pc_sys.shutdown()
+    d_pc = float(np.abs(s_file - s_mem4).max())
+    print(f"  {len(sc.cloud.points)} points: max |file - in-memory| points {d_pts}, gray "
+          f"{d_gray}; init sweep {s_file.shape}: max |diff| {d_pc}, argmax "
+          f"{int(s_file.argmax())} vs {int(s_mem4.argmax())}")
+    check(d_pc <= SCORE_ATOL and int(s_file.argmax()) == int(s_mem4.argmax()),
+          f"the XYZ's init sweep equals the in-memory pointcloud's within {SCORE_ATOL}, the same "
+          "argmax")
+    rec["models"] = dict(mesh_sweep_gap=d_mesh, cloud_sweep_gap=d_pc,
+                         cloud_points=len(sc.cloud.points), cloud_points_gap=d_pts,
+                         cloud_gray_gap=d_gray,
+                         renumbered_vertices=int((perm != np.arange(len(perm))).sum()))
+    del sc
+
+    # --- (e) circuit_diag's classic and pipelined drives ---------------------------------
+    print(f"settings: circuit_diag.run_diag, classic and pipelined, NMI off, synchronous "
+          f"mapping, the first {SET_DIAG_FRAMES} frames of the clean prefix")
+    world, frames = replay_bench.generate_sequence(SET_DIAG_FRAMES, 960, 540, n_total=520,
+                                                   cache=False, device=dev)
+    rec["diag"] = {}
+    for pipelined in (False, True):
+        front = "pipelined" if pipelined else "classic"
+        s = circuit_diag.run_diag(world, frames, pipelined, use_nmi=False, threshold=0.45,
+                                  out_path=os.path.join(SET_DIR, f"diag_{front}.jsonl"),
+                                  n_total=520, async_mapping=False, device=dev)
+        rec["diag"][front] = s
+        print("  " + json.dumps({k: v for k, v in s.items() if k != "kf_frame_ids"})
+              + f"  [{smi}]")
+        check(s["n_tracked"] >= SET_DIAG_MIN_TRACKED
+              and s["online_err_p95_m"] <= SET_DIAG_P95_M,
+              f"{front}: at least {SET_DIAG_MIN_TRACKED} of {SET_DIAG_FRAMES} tracked "
+              f"({s['n_tracked']}), online error p95 {s['online_err_p95_m']:.4f} <= "
+              f"{SET_DIAG_P95_M} m")
+    del frames
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase took {rec['phase_s']:.1f} s  [{smi}]")
+    return rec
+
+
 # The tools phase: the bench sweep on tools/bench.py's scene (the reference's
 # bench.py: the 71,442-face height field, a 512x512 texture, 27 x 27 at
 # 960x540), then the domain-gap replay of tools/replay_bench.py on the
@@ -1871,7 +2172,7 @@ TOOLS_VIZ_DIR = os.path.join("build", "chip_smoke_viz")  # gitignored
 
 
 def tools_phase(dev, smi, check, cuda_ms):
-    """Phase 11: the tools and the headless visualization at 960x540 (see
+    """Phase 12: the tools and the headless visualization at 960x540 (see
     the TOOLS_* constants). Returns its record for the JSON line."""
     import re
 
@@ -2243,7 +2544,7 @@ def multichip_rank(reps, unsharded):
 
 
 def multichip_phase(smi, check, device="cuda"):
-    """Phase 12: the sharded paths on worlds of ranks (see MC_WORLDS), each
+    """Phase 13: the sharded paths on worlds of ranks (see MC_WORLDS), each
     result held against the unsharded single-process call on the card, the
     launches of each rank counted, the times printed; then
     `entry.dryrun_multichip(2)`. Returns the phase's record."""
@@ -2665,6 +2966,7 @@ def main() -> int:
     finally:
         session.shutdown()
     system_record = system_phase(dev, smi, check)
+    settings_record = settings_phase(dev, smi, check)
     tools_record = tools_phase(dev, smi, check, cuda_ms)
     multichip_record = multichip_phase(smi, check)
     rc = track_record["raster_check"]
@@ -2687,6 +2989,7 @@ def main() -> int:
     print(json.dumps({"mapping": map_record, "card": smi}))
     print(json.dumps({"loop": loop_record, "card": smi}))
     print(json.dumps({"system": system_record, "card": smi}, default=float))
+    print(json.dumps({"settings": settings_record, "card": smi}, default=float))
     print(json.dumps({"tools": tools_record, "card": smi}, default=float))
     print(json.dumps({"multichip": multichip_record, "card": smi}, default=float))
     print(json.dumps({"kernels": out}))

@@ -73,8 +73,11 @@ runs the kernels' plain versions; the tests use it at small sizes).
 
 from __future__ import annotations
 
+import os
+import shutil
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -82,7 +85,7 @@ import torch
 from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.config import (CameraConfig, NMIConfig, NMIGridConfig, ORBConfig,
                                        SystemConfig, TrackingConfig)
-from orbslam2_nmi_torch.io.model_loader import MeshModel
+from orbslam2_nmi_torch.io.model_loader import MeshModel, PointCloudModel
 from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, raycast_terrain
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, matching, raster, render
 from orbslam2_nmi_torch.slam import initialization
@@ -808,6 +811,204 @@ def circuit_entry(device: str | torch.device = "cuda"):
     frames = world.render_frames(list(range(n)), n, 960, 540, device=system.device)
     poses = np.stack([world.pose_at(i, n) for i in range(n)])
     return system, frames, poses
+
+
+# ---------------------------------------------------------------------------
+# The settings-file entry: a scene on disk in the reference's formats
+# ---------------------------------------------------------------------------
+
+SETTINGS_LAYOUTS = ("eth", "newer_college")
+SETTINGS_T0 = 1_600_000_000  # the first frame's stamp, seconds since the epoch
+CLOUD_OFFSET = (1000.0, -2000.0, 100.0)  # NMI.Render.Offset: the model file's origin
+CLOUD_DENSITY = 100.0  # the pointcloud's samples a square metre (render.mesh_to_points)
+
+
+class SettingsScene(NamedTuple):
+    settings: str  # the settings YAML
+    sequence: str  # the image sequence's directory
+    cfg: SystemConfig  # what `load_yaml_config(settings)` gives
+    world: SyntheticMeshWorld
+    frames: torch.Tensor  # uint8 [N, H, W], as written
+    poses: np.ndarray  # [N, 4, 4] float32 true Tcw of the frames
+    cloud: PointCloudModel  # what the XYZ and offset files hold, the offset removed
+
+
+def _yaml_matrix(name: str, m: np.ndarray) -> str:
+    rows, cols = m.shape
+    data = ", ".join(repr(float(x)) for x in np.asarray(m, np.float32).ravel())
+    return (f"{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n   dt: f\n"
+            f"   data: [ {data} ]\n")
+
+
+def write_settings_yaml(path: str, cfg: SystemConfig) -> None:
+    """Write every field of `cfg` that a settings file carries, in the
+    reference's OpenCV layout (Examples/Monocular/ETH_small.yaml's keys;
+    `load_yaml_config` reads it back into `cfg`'s values). Floats are
+    written as Python's shortest exact repr, matrices as float32."""
+    c, o, n, g, v = cfg.camera, cfg.orb, cfg.nmi, cfg.nmi.grid, cfg.viewer
+
+    def num(x) -> str:
+        return repr(float(x))
+
+    lines = ["%YAML:1.0", ""]
+    lines += [f"Camera.{k}: {num(getattr(c, k))}"
+              for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2", "k3", "fps")]
+    lines += [f"Camera.RGB: {int(c.rgb)}", f"Camera.Width: {int(c.width)}",
+              f"Camera.Height: {int(c.height)}", "",
+              f"ORBextractor.nFeatures: {int(o.n_features)}",
+              f"ORBextractor.scaleFactor: {num(o.scale_factor)}",
+              f"ORBextractor.nLevels: {int(o.n_levels)}",
+              f"ORBextractor.iniThFAST: {int(o.ini_th_fast)}",
+              f"ORBextractor.minThFAST: {int(o.min_th_fast)}", ""]
+    lines += [f"Viewer.{k}: {num(x)}" for k, x in (
+        ("KeyFrameSize", v.keyframe_size), ("KeyFrameLineWidth", v.keyframe_line_width),
+        ("GraphLineWidth", v.graph_line_width), ("PointSize", v.point_size),
+        ("CameraSize", v.camera_size), ("CameraLineWidth", v.camera_line_width),
+        ("ViewpointX", v.viewpoint[0]), ("ViewpointY", v.viewpoint[1]),
+        ("ViewpointZ", v.viewpoint[2]), ("ViewpointF", v.viewpoint_f))]
+    lines += ["", f"NMI.Offset: {int(n.offset)}", f"NMI.Treshold: {num(n.threshold)}"]
+    for key, vals, fmt in (("SynthNum", g.synth_num, int), ("SynthStep", g.synth_step, num),
+                           ("WarpNum", g.warp_num, int), ("WarpStep", g.warp_step, num)):
+        lines += [f"NMI.{key}{ax}: {fmt(x)}" for ax, x in zip("XYZ", vals)]
+    lines += [f"NMI.Render.PointSize: {num(n.render_point_size)}",
+              f"NMI.Render.NearPlane: {num(n.render_near)}",
+              f"NMI.Render.FarPlane: {num(n.render_far)}"]
+    lines += [f'NMI.Render.{k}: "{p}"' for k, p in (
+        ("Object", n.model_obj_path), ("Texture", n.model_texture_path),
+        ("Cloud", n.model_cloud_path), ("Offset", n.model_offset_path)) if p]
+    text = "\n".join(lines) + "\n"
+    for name, m in (("NMI.Init1", n.init1), ("NMI.Init2", n.init2)):
+        if m is not None:
+            text += _yaml_matrix(name, m)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def rgb_of_gray(gray: np.ndarray) -> np.ndarray:
+    """[P, 3] float32 colours whose luma, as the XYZ readers compute it
+    (`model_loader.load_xyz_pointcloud`: 0.299 r + 0.587 g + 0.114 b in
+    float32), is `gray` exactly: r = g and b within a few float32 steps of
+    `gray`. Raises where no such pair is near."""
+    gray = np.ascontiguousarray(gray, np.float32)
+    bits = gray.view(np.int32)
+    rgb = np.empty((len(gray), 3), np.float32)
+    todo = np.arange(len(gray))
+    for k in (0, 1, -1, 2, -2, 3, -3, 4, -4, 5, -5):
+        for j in range(-12, 13):
+            if not len(todo):
+                return rgb
+            w = (bits[todo] + k).view(np.float32)
+            b = (bits[todo] + j).view(np.float32)
+            ok = (0.299 * w + 0.587 * w + 0.114 * b) == gray[todo]
+            rgb[todo[ok]] = np.stack([w[ok], w[ok], b[ok]], -1)
+            todo = todo[~ok]
+    if len(todo):
+        raise ValueError(f"no exact colour for {len(todo)} gray values, e.g. {gray[todo[0]]}")
+    return rgb
+
+
+def write_settings_scene(out_dir: str, n_frames: int, n_total: int = CIRCUIT_FRAMES,
+                         domain_gap: bool = False, layout: str = "eth",
+                         world: SyntheticMeshWorld | None = None, width: int = 960,
+                         height: int = 540, fps: float = 30.0, n_features: int = 2000,
+                         n_levels: int = 8, cloud_density: float = CLOUD_DENSITY,
+                         frames: torch.Tensor | None = None,
+                         device: str | torch.device = "cuda") -> SettingsScene:
+    """Write a world and the first `n_frames` of its `n_total`-frame circuit
+    to `out_dir` as a user brings a dataset, for `run_replay --settings
+    OUT/settings.yaml --sequence OUT/sequence`:
+
+    - `settings.yaml` (`write_settings_yaml`): the camera from the world's K
+      at `width` x `height` and `fps`; ORB with `n_features` on `n_levels`
+      levels; NMI offset 8 (`INIT_FRAMES`), accept threshold 0.1 with
+      `domain_gap`, else 0.45, the reference's search grid, near/far from
+      the world; the model files by absolute path; `NMI.Init1`/`NMI.Init2`
+      the true Twc of frames 0 and 8;
+    - the prior model: `model.obj` (v, vt and f records, per-vertex UVs,
+      floats as "%.9g", so float32 values read back exactly) with
+      `model_texture.npy`, and `model.xyz` (`render.mesh_to_points` at
+      `cloud_density` samples a square metre, shifted by `CLOUD_OFFSET`,
+      "%.17g", colours from `rgb_of_gray`) with `model_offset.txt`;
+    - the frames (`frames` if given, else `replay_bench.render_sequence`;
+      the seed-1 circuit's world unless `world` is given) as uint8 `.npy`
+      images in
+      `OUT/sequence`: with `layout` "eth", `<i:06d>.npy` named in
+      `OUT/sequence_files.txt` and stamped in `OUT/sequence/_times.txt`
+      (mono_ETH.cc:164-199); with "newer_college", named `<sec>_<nsec>.npy`
+      (mono_newer_college.cc). Frame i is stamped SETTINGS_T0 + i / fps.
+
+    Nothing on the system's path calls this: it makes a local stand-in for
+    a dataset. Returns the paths, the config the YAML holds, the world, the
+    frames, their true poses and the pointcloud."""
+    from orbslam2_nmi_torch.io import model_loader
+    from orbslam2_nmi_torch.tools import replay_bench
+
+    if layout not in SETTINGS_LAYOUTS:
+        raise ValueError(f"layout {layout!r} is not one of {SETTINGS_LAYOUTS}")
+    device = kernels.resolve_device(device, "write_settings_scene()")
+    world = world or SyntheticMeshWorld.generate(seed=CIRCUIT_SEED)
+    if frames is None:
+        frames = replay_bench.render_sequence(world, n_frames, width, height, n_total,
+                                              domain_gap, CIRCUIT_SEED, device)
+    if tuple(frames.shape) != (n_frames, height, width):
+        raise ValueError(f"frames {tuple(frames.shape)} are not {n_frames} of {height}x{width}")
+    out_dir = os.path.abspath(out_dir)
+    seq = os.path.join(out_dir, "sequence")
+    shutil.rmtree(seq, ignore_errors=True)
+    os.makedirs(seq)
+    files_list = seq + "_files.txt"
+    if os.path.exists(files_list):
+        os.remove(files_list)
+
+    mesh = world.mesh
+    path = {k: os.path.join(out_dir, f) for k, f in (
+        ("obj", "model.obj"), ("texture", "model_texture.npy"), ("cloud", "model.xyz"),
+        ("offset", "model_offset.txt"), ("settings", "settings.yaml"))}
+    with open(path["obj"], "w") as f:
+        np.savetxt(f, mesh.vertices, fmt="v %.9g %.9g %.9g")
+        np.savetxt(f, mesh.uvs, fmt="vt %.9g %.9g")
+        np.savetxt(f, np.repeat(mesh.faces.astype(np.int64) + 1, 2, axis=1),
+                   fmt="f %d/%d %d/%d %d/%d")
+    np.save(path["texture"], mesh.texture_gray.astype(np.float32))
+    cloud = render.mesh_to_points(mesh, samples_per_unit_area=cloud_density)
+    off = np.asarray(CLOUD_OFFSET, np.float64)
+    model_loader.save_xyz_pointcloud(path["cloud"], cloud.points.astype(np.float64) + off,
+                                     rgb_of_gray(cloud.gray), fmt="%.17g")
+    np.savetxt(path["offset"], off[None], fmt="%.17g")
+
+    poses = np.stack([world.pose_at(i, n_total) for i in range(n_frames)])
+    near, far = world.near_far()
+    K = world.camera_K(width, height)
+
+    def twc(i: int) -> np.ndarray:
+        return np.linalg.inv(world.pose_at(i, n_total).astype(np.float64)).astype(np.float32)
+
+    offset = INIT_FRAMES[1] - INIT_FRAMES[0]
+    cfg = SystemConfig(
+        camera=CameraConfig(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                            cy=float(K[1, 2]), width=width, height=height, fps=float(fps)),
+        orb=ORBConfig(n_features=n_features, n_levels=n_levels),
+        nmi=NMIConfig(init1=twc(0), init2=twc(offset), offset=offset,
+                      threshold=0.1 if domain_gap else 0.45, render_near=near, render_far=far,
+                      model_obj_path=path["obj"], model_texture_path=path["texture"],
+                      model_cloud_path=path["cloud"], model_offset_path=path["offset"]),
+        tracking=TrackingConfig(max_frames=int(round(fps))))
+    write_settings_yaml(path["settings"], cfg)
+
+    host = frames.cpu().numpy()
+    stamps = [SETTINGS_T0 * 10**9 + round(i * 1e9 / fps) for i in range(n_frames)]  # ns
+    if layout == "eth":
+        names = [f"{i:06d}.npy" for i in range(n_frames)]
+        with open(os.path.join(seq, "_times.txt"), "w") as f:
+            f.writelines(f"{ns // 10**9}.{ns % 10**9:09d}\n" for ns in stamps)
+        with open(files_list, "w") as f:
+            f.writelines(n + "\n" for n in names)
+    else:
+        names = [f"{ns // 10**9}_{ns % 10**9:09d}.npy" for ns in stamps]
+    for name, img in zip(names, host):
+        np.save(os.path.join(seq, name), img)
+    return SettingsScene(settings=path["settings"], sequence=seq, cfg=cfg, world=world,
+                         frames=frames, poses=poses, cloud=cloud)
 
 
 # ---------------------------------------------------------------------------

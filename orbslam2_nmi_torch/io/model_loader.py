@@ -124,12 +124,14 @@ def load_xyz_pointcloud(path: str, offset_path: Optional[str] = None) -> PointCl
     return PointCloudModel(points=xyz.astype(np.float32), gray=gray.astype(np.float32))
 
 
-def save_xyz_pointcloud(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None):
+def save_xyz_pointcloud(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None,
+                        fmt: str = "%.6f"):
     """Write `x y z [r g b]` rows — the map-dump format of Tracking::PrintMapPoints
-    (reference: src/Tracking.cc:2422-2449)."""
+    (reference: src/Tracking.cc:2422-2449). `fmt` formats every number
+    ("%.17g" writes float64 values that read back exactly)."""
     pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
     if colors is None:
-        np.savetxt(path, pts, fmt="%.6f")
+        np.savetxt(path, pts, fmt=fmt)
     else:
         cols = np.asarray(colors).reshape(-1, 3)
-        np.savetxt(path, np.hstack([pts, cols]), fmt="%.6f")
+        np.savetxt(path, np.hstack([pts, cols]), fmt=fmt)

@@ -172,6 +172,12 @@ def shift_bounds_for_angles(
     return int(np.ceil(vert)), int(np.ceil(horiz))
 
 
+def shift_bound_for_angles(K: np.ndarray, angles: np.ndarray, height: int, width: int) -> int:
+    """The joint bound: the larger of `shift_bounds_for_angles`' two."""
+    v, h = shift_bounds_for_angles(K, angles, height, width)
+    return max(v, h)
+
+
 @labelled("warp_homographies")
 def warp_homographies(img: torch.Tensor, Hs: torch.Tensor, bound: tuple[int, int]) -> torch.Tensor:
     """Warp `img` [H, W] by the homographies Hs [R, 3, 3] whose shifts are

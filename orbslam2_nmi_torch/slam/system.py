@@ -33,7 +33,7 @@ from typing import Optional
 import numpy as np
 
 from orbslam2_nmi_torch import kernels
-from orbslam2_nmi_torch.config import SystemConfig
+from orbslam2_nmi_torch.config import SystemConfig, load_yaml_config
 from orbslam2_nmi_torch.io import model_loader, trajectory
 from orbslam2_nmi_torch.ops import render
 from orbslam2_nmi_torch.slam import checkpoint
@@ -154,6 +154,13 @@ class SLAMSystem:
                                  keyframes=int(self.map.n_keyframes))
         self.log(f"trained vocabulary: {self.vocabulary.n_words} words from {len(alld)} "
                  "descriptors")
+
+    @classmethod
+    def from_yaml(cls, settings_path: str, **kw) -> "SLAMSystem":
+        """A system on a reference-format settings YAML
+        (`config.load_yaml_config`); `kw` goes to the constructor, `device`
+        included (default "cuda")."""
+        return cls(load_yaml_config(settings_path), **kw)
 
     def _load_model_from_config(self):
         """-> (pointcloud RenderModel | None, MeshModel | None) per render_mode

@@ -28,7 +28,25 @@ and of the pose the sweep found, and the frame the tracker had reached when
 it landed; and the anchors that landed while a local BA which held their
 keyframe free was solving (`landed_in_solve`: the BA's write-back finds the
 keyframe anchored). Every time is printed with the card's
-`nvidia-smi` line. It refuses to run without CUDA.
+`nvidia-smi` line.
+
+    python3 -m orbslam2_nmi_torch.tools.circuit_diag --frames N [--total M]
+        [--classic] [--pipelined] [--no-nmi] [--domain-gap] [--wide]
+        [--mapper async|sync ...] [--out DIR]
+
+is the JAX tool's drive (`run_diag`): the first N frames of the M-frame
+circuit (`replay_bench.generate_sequence`; the domain-gap imagery at
+threshold 0.1, else 0.45; `--wide` the loop-closure circuit) through the
+classic front-end (`SLAMSystem.track_monocular`, frame by frame) or the
+pipelined one, each front-end asked for (classic if neither) in each mapper
+mode (async: the JAX tool's async mapping and NMI; sync: no workers), on a
+fresh `replay_bench.build_system` each. It writes the JAX tool's rows (frame,
+state, online error, inliers, keyframe, the recomposed trajectory's error)
+and the captured log to DIR/diag_<run>_<front-end>_<mapper>[_dg].jsonl and
+prints the JAX summary's keys with the online error's p50, p95 and max, the
+keys of PIPELINED_VS_CLASSIC_r05.json.
+
+It refuses to run without CUDA unless `--device cpu` is asked for.
 """
 
 from __future__ import annotations
@@ -194,6 +212,118 @@ def drive(system, frames, poses, mapper: str = "async", chunks=None) -> tuple:
     return fe, results, summary
 
 
+def diag_rows(world, results, n_total: int, lo: int = 0, hi: int | None = None) -> list:
+    """The JAX tool's per-frame rows of `results[lo:hi]`: frame, state, the
+    online camera-centre error against `world`'s truth (4 decimals), inliers
+    and whether the frame made a keyframe."""
+    rows = []
+    for i in range(lo, len(results) if hi is None else hi):
+        r = results[i]
+        row = {"i": i}
+        if r is None or r.Tcw is None:
+            row["state"] = "none"
+        else:
+            row["state"] = r.state.name
+            row["err_m"] = round(float(np.linalg.norm(
+                _center(r.Tcw) - _center(world.pose_at(i, n_total)))), 4)
+            row["inl"] = int(r.n_inliers)
+            row["kf"] = bool(r.is_keyframe)
+        rows.append(row)
+    return rows
+
+
+def online_errors(rows) -> dict:
+    """p50, p95 and max of the rows' online errors, in the keys of
+    PIPELINED_VS_CLASSIC_r05.json."""
+    e = np.asarray([r["err_m"] for r in rows if "err_m" in r], np.float64)
+    if not len(e):
+        return dict(online_err_p50_m=None, online_err_p95_m=None, online_err_max_m=None)
+    return dict(online_err_p50_m=float(np.median(e)),
+                online_err_p95_m=float(np.quantile(e, 0.95)), online_err_max_m=float(e.max()))
+
+
+def run_diag(world, frames, pipelined: bool, use_nmi: bool, threshold: float, out_path: str,
+             n_total: int | None = None, async_mapping: bool = True, device="cuda") -> dict:
+    """The JAX tool's drive (`orbslam2_nmi_tpu/tools/circuit_diag.run_diag`):
+    `replay_bench.build_system` on `world` (async mapping and async NMI, as
+    the JAX tool builds it, unless `async_mapping` is off), the init poses
+    frames 0 and `offset`'s truth, then every frame through the classic
+    front-end (`track_monocular`) or, with `pipelined`, through
+    `PipelinedFrontend.run` in chunks of 40; rows flushed to
+    `out_path + ".part"` every 40 frames. Drains the workers, raises on
+    their errors, writes the rows (with `err_final_m`, the error of the
+    recomposed trajectory) and the captured log to `out_path`, shuts the
+    system down and returns the JAX summary's keys with the rows' online
+    error p50/p95/max."""
+    n_frames, height, width = frames.shape
+    n_total = n_total or n_frames
+    sys_ = replay_bench.build_system(world, width, height, use_nmi=use_nmi,
+                                     async_mapping=async_mapping, threshold=threshold,
+                                     device=device)
+    try:
+        sys_.set_init_poses(world.pose_at(0, n_total),
+                            world.pose_at(sys_.cfg.nmi.offset, n_total))
+        log_rows: list = []
+        orig_log = sys_.log
+
+        def capture_log(msg):
+            log_rows.append(msg)
+            orig_log(msg)
+
+        sys_.log = sys_.tracker.log = capture_log
+        ts = np.arange(n_frames) / 30.0
+        results: list = []
+        t0 = time.perf_counter()
+        with open(out_path + ".part", "w") as part:
+            if pipelined:
+                fe = PipelinedFrontend(sys_)
+                for c0 in range(0, n_frames, CHUNK):
+                    c1 = min(c0 + CHUNK, n_frames)
+                    results.extend(fe.run(frames[c0:c1], ts[c0:c1], start_id=c0))
+                    part.writelines(json.dumps(r) + "\n"
+                                    for r in diag_rows(world, results, n_total, c0, c1))
+                    part.flush()
+            else:
+                for i in range(n_frames):
+                    results.append(sys_.track_monocular(frames[i], float(ts[i])))
+                    if (i + 1) % CHUNK == 0 or i == n_frames - 1:
+                        part.writelines(json.dumps(r) + "\n" for r in diag_rows(
+                            world, results, n_total, max(0, i + 1 - CHUNK), i + 1))
+                        part.flush()
+        wall = time.perf_counter() - t0
+        replay_bench.drain(sys_)
+
+        rows = diag_rows(world, results, n_total)
+        m = sys_.map
+        with m.lock:
+            traj = recompose_trajectory(sys_.tracker.trajectory, m)
+            vk = m.valid_keyframe_indices()
+            kf_ids = [int(f) for f in m.kf_frame_id[vk]]
+            nmi_kf_ids = [int(f) for f, a in zip(m.kf_frame_id[vk], m.kf_nmi_reloc[vk]) if a]
+            n_keyframes, n_kf_valid = int(m.n_keyframes), int(m.kf_valid.sum())
+        final_err = {int(fid): round(float(np.linalg.norm(
+            _center(Tcw) - _center(world.pose_at(fid, n_total)))), 4)
+            for fid, _t, Tcw, *_ in traj}
+        for row in rows:
+            if row["i"] in final_err:
+                row["err_final_m"] = final_err[row["i"]]
+        est = [r[2] for r in traj]
+        gt = [world.pose_at(r[0], n_total) for r in traj]
+        ate = ate_rmse(est, gt, align=not use_nmi) if est else float("inf")
+        with open(out_path, "w") as f:
+            f.writelines(json.dumps(row) + "\n" for row in rows)
+            f.write(json.dumps({"log": log_rows}) + "\n")
+    finally:
+        sys_.shutdown()
+    n_ok = sum(1 for r in results
+               if r is not None and r.Tcw is not None and r.state == TrackingState.OK)
+    return {"pipelined": pipelined, "use_nmi": use_nmi, "n_frames": n_frames,
+            "n_tracked": n_ok, "n_keyframes": n_keyframes, "n_kf_valid": n_kf_valid,
+            "ate_rmse": round(float(ate), 4), "wall_s": round(wall, 1),
+            "kf_frame_ids": kf_ids, "nmi_anchor_frame_ids": nmi_kf_ids, "out": out_path,
+            **online_errors(rows)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -205,37 +335,57 @@ def main(argv=None) -> int:
                    help="drive the N-frame domain-gap prefix of tools/bench.py's replay instead")
     p.add_argument("--repeat", type=int, default=1, help="drive the list of modes R times")
     p.add_argument("--out", default="build/circuit_diag")
+    p.add_argument("--frames", type=int, default=0,
+                   help="the JAX tool's drive (run_diag) of the first N frames, on the front-ends "
+                   "asked for (--classic, --pipelined; classic if neither) and the --mapper modes "
+                   "async or sync")
+    p.add_argument("--total", type=int, default=None,
+                   help="with --frames: the circuit's length (default N)")
+    p.add_argument("--classic", action="store_true", help="with --frames: track_monocular")
+    p.add_argument("--pipelined", action="store_true", help="with --frames: PipelinedFrontend")
+    p.add_argument("--no-nmi", action="store_true", help="with --frames: no localizer")
+    p.add_argument("--domain-gap", action="store_true",
+                   help="with --frames: the domain-gap imagery, threshold 0.1 (else 0.45)")
+    p.add_argument("--wide", action="store_true", help="with --frames: the wide circuit")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
+    if args.frames and set(args.mapper) - {"async", "sync"}:
+        p.error("--frames drives the --mapper modes async and sync only")
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("circuit_diag: CUDA is not available; this tool drives the circuit on an NVIDIA "
-              "GPU", file=sys.stderr)
+              "GPU (pass --device cpu for the CPU)", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = (subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+           if args.device == "cuda" else "cpu")
     os.makedirs(args.out, exist_ok=True)
+    if args.frames:
+        return main_diag(args, smi)
     t = time.perf_counter()
     if args.prefix:
         world, frames = replay_bench.generate_sequence(
-            args.prefix, 960, 540, n_total=CIRCUIT_FRAMES, domain_gap=True, cache=False)
+            args.prefix, 960, 540, n_total=CIRCUIT_FRAMES, domain_gap=True, cache=False,
+            device=args.device)
         poses = np.stack([world.pose_at(i, CIRCUIT_FRAMES) for i in range(args.prefix)])
         chunks = [(0, replay_bench.WARMUP), (replay_bench.WARMUP, args.prefix)]
 
         def make(mode):
             s = replay_bench.build_system(world, 960, 540, async_mapping=mode != "sync",
-                                          threshold=0.1)
+                                          threshold=0.1, device=args.device)
             s.set_init_poses(poses[0], world.pose_at(s.cfg.nmi.offset, CIRCUIT_FRAMES))
             return s
         system = None
     else:
-        system, frames, poses = circuit_entry("cuda")
+        system, frames, poses = circuit_entry(args.device)
         chunks = None
 
         def make(mode):
-            return circuit_system("cuda", asynchronous=mode != "sync")[0]
+            return circuit_system(args.device, asynchronous=mode != "sync")[0]
         if args.mapper[0] == "sync":
             system.shutdown()
             system = None
-    torch.cuda.synchronize()
+    if args.device == "cuda":
+        torch.cuda.synchronize()
     render_s = time.perf_counter() - t
     failed = False
     for run, mode in enumerate(args.mapper * args.repeat):
@@ -262,6 +412,27 @@ def main(argv=None) -> int:
             print(errors[0], file=sys.stderr)
             failed = True
     return 1 if failed else 0
+
+
+def main_diag(args, smi: str) -> int:
+    """`--frames N`: the JAX tool's drive on each front-end and mapper mode
+    asked for, one after another on the same rendered frames; prints each
+    summary as a JSON line with the card's `nvidia-smi` line."""
+    world, frames = replay_bench.generate_sequence(
+        args.frames, 960, 540, n_total=args.total, domain_gap=args.domain_gap, cache=False,
+        circuit="wide" if args.wide else "standard", device=args.device)
+    fronts = [f for f, on in (("classic", args.classic or not args.pipelined),
+                              ("pipelined", args.pipelined)) if on]
+    for run, (front, mode) in enumerate((f, m) for m in args.mapper * args.repeat for f in fronts):
+        gap = "_dg" if args.domain_gap else ""
+        summary = run_diag(world, frames, pipelined=front == "pipelined", use_nmi=not args.no_nmi,
+                           threshold=0.1 if args.domain_gap else 0.45,
+                           out_path=os.path.join(args.out, f"diag_{run}_{front}_{mode}{gap}.jsonl"),
+                           n_total=args.total or args.frames, async_mapping=mode == "async",
+                           device=args.device)
+        summary.update(frontend=front, mapper=mode, domain_gap=args.domain_gap, device=smi)
+        print(json.dumps({k: v for k, v in summary.items() if k != "kf_frame_ids"}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

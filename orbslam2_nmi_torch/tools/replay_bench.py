@@ -80,7 +80,7 @@ def generate_sequence(n_frames: int = 520, width: int = 960, height: int = 540, 
     the returned `world` keeps the flat texture the NMI prior localizes
     against. `circuit="wide"` is the loop-closure circuit (`generate_wide`).
     """
-    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, apply_photometric_gap
+    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld
 
     device = kernels.resolve_device(device, "generate_sequence()")
     n_total = n_total or n_frames
@@ -92,17 +92,29 @@ def generate_sequence(n_frames: int = 520, width: int = 960, height: int = 540, 
         frames = np.load(path)
         if frames.shape == (n_frames, height, width):
             return world, torch.from_numpy(frames).to(device)
+    frames = render_sequence(world, n_frames, width, height, n_total, domain_gap, seed, device)
+    if cache:
+        tmp = path[: -len(".npy")] + f".tmp{os.getpid()}.npy"
+        np.save(tmp, frames.cpu().numpy())
+        os.replace(tmp, path)
+    return world, frames
+
+
+def render_sequence(world, n_frames: int, width: int, height: int, n_total: int,
+                    domain_gap: bool = False, seed: int = 1, device="cuda") -> torch.Tensor:
+    """`generate_sequence`'s frames of `world`, uint8 [N, H, W] on `device`,
+    never cached: the first `n_frames` of its `n_total`-frame circuit, with
+    the domain gap (the lit mesh, then `apply_photometric_gap` seeded with
+    `seed`) if asked."""
+    from orbslam2_nmi_torch.io.synthetic import apply_photometric_gap
+
     render_world = dataclasses.replace(world, mesh=world.lit_mesh()) if domain_gap else world
     frames = render_world.render_frames(list(range(n_frames)), n_total, width, height,
                                         device=device)
     if domain_gap:
         frames = torch.from_numpy(apply_photometric_gap(frames.cpu().numpy(), seed=seed)).to(
             device)
-    if cache:
-        tmp = path[: -len(".npy")] + f".tmp{os.getpid()}.npy"
-        np.save(tmp, frames.cpu().numpy())
-        os.replace(tmp, path)
-    return world, frames
+    return frames
 
 
 def build_system(world, width: int, height: int, n_features: int = 2000, n_levels: int = 8,

@@ -152,7 +152,10 @@ def test_port_never_imports_jax():
     trajectory, a two-view initialization, a rendered circuit sequence
     (`tools/replay_bench`), its descriptors (`tools/build_vocabulary`) and
     an overlay (`viz/replay`), the sharded pose graph and BA on a world of
-    one rank on the CPU, with every mapping, loop-closing,
+    one rank on the CPU, a settings scene written to disk and replayed
+    through `run_replay --settings --sequence` (the first NMI latch on its
+    OBJ), and
+    `tools/circuit_diag.run_diag`'s pipelined drive, with every mapping, loop-closing,
     system, replay, tool, visualization and multi-rank module imported,
     leaves jax and the JAX package out of sys.modules, and no file of the
     port (nor chip_smoke.py) imports them."""
@@ -266,6 +269,16 @@ def test_port_never_imports_jax():
         "assert torch.equal(sharded_ba.sharded_bundle_adjust(m, prob, 1, 1).cam_Tcw, prob.cam_Tcw)\n"
         "assert sharded_nmi.pad_to_multiple(torch.ones(3, 2), 2).shape == (4, 2)\n"
         "distributed.shutdown()\n"
+        "from orbslam2_nmi_torch.entry import write_settings_scene\n"
+        "from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld, terrain_mesh\n"
+        "mw = SyntheticMeshWorld(mesh=terrain_mesh(seed=1, n=20), fx=80.0)\n"
+        "sc = write_settings_scene(tempfile.mkdtemp(), 4, n_total=120, world=mw, width=128,"
+        " height=96, n_features=150, n_levels=3, cloud_density=1.0, device='cpu')\n"
+        "assert run_replay.main(['--settings', sc.settings, '--sequence', sc.sequence,"
+        " '--output', tempfile.mkdtemp(), '--device', 'cpu']) == 0\n"
+        "d = circuit_diag.run_diag(mw, sc.frames, True, False, 0.45, tempfile.mkdtemp() + '/d',"
+        " n_total=120, async_mapping=False, device='cpu')\n"
+        "assert d['n_frames'] == 4 and 'online_err_p95_m' in d, d\n"
         "print(json.dumps(sorted(m for m in sys.modules"
         " if m.split('.')[0] in ('jax', 'jaxlib', 'orbslam2_nmi_tpu'))))\n"
     )
