@@ -2316,9 +2316,9 @@ def tools_phase(dev, smi, check, cuda_ms):
     other = bud["by_subsystem_ms"].get("other", 0.0)
     print(f"  by subsystem (device ms over the window): {bud['by_subsystem_ms']}; "
           f"{bud['device_ms_per_frame']} device ms a frame over {bud['n_device_ops']} device "
-          f"operations; idle share {bud['device_idle_share']:.4f} (summed device time), "
-          f"{bud['device_idle_share_union']:.4f} (union of intervals) over the traced "
-          f"{bud['traced_wall_s']:.2f} s; {bud['wall_fps_window']:.2f} frames/s traced; walls "
+          f"operations; idle share {bud['device_idle_share_union']:.4f} (union of intervals) "
+          f"over the traced {bud['traced_wall_s']:.2f} s; {bud['wall_fps_window']:.2f} "
+          f"frames/s traced; walls "
           f"p50 {bud['frame_ms_p50']:.1f}, p95 {bud['frame_ms_p95']:.1f}, max "
           f"{bud['frame_ms_max']:.1f} ms; keyframes {bud['n_keyframes']}, anchors "
           f"{bud['n_nmi_anchors']}; the budget took {rec['budget_s']:.1f} s  [{smi}]")

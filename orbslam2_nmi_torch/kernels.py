@@ -12,7 +12,9 @@ Every C entry point launches one kernel on the stream it is given and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code and counts the launch
 in `LAUNCHES`, which is how a run shows that its main path went through the
 kernels. Nothing here is imported or built until a CUDA tensor reaches a
-wrapper, so the CPU tests import every module without `nvcc`.
+wrapper, so the CPU tests import every module without `nvcc`. The first
+load's seconds, the build included, are the set-up counter
+`kernels.load` (`utils/profiling.SETUP`).
 """
 
 from __future__ import annotations
@@ -24,9 +26,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
+
+from orbslam2_nmi_torch.utils import profiling
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("histogram_nmi.cu", "raster.cu")
@@ -129,6 +134,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
+            t0 = time.perf_counter()
             handle = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, f"nmi_{name}")
@@ -137,6 +143,7 @@ def lib() -> ctypes.CDLL:
             handle.nmi_error_string.argtypes = (ctypes.c_int,)
             handle.nmi_error_string.restype = ctypes.c_char_p
             _lib = handle
+            profiling.record_setup("kernels.load", time.perf_counter() - t0)
     return _lib
 
 

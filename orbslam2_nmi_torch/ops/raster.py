@@ -43,7 +43,7 @@ import torch
 
 from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.io.model_loader import MeshModel
-from orbslam2_nmi_torch.utils.profiling import labelled
+from orbslam2_nmi_torch.utils.profiling import labelled, span
 
 TILE_H = 16
 TILE_W = 128
@@ -56,6 +56,10 @@ DEPTH_LEVELS = 1 << 20
 SENTINEL = np.int32(2**31 - 1)
 MAX_TEX_DIM = 512  # textures above this per side are box-downsampled at bin time
 _INV_UV_MAX = float(np.float32(1.0) / np.float32(UV_MAX))
+# bin_mesh's phases
+_BIN_BUILD = span("render.bin_mesh.build")
+_BIN_SLAB = span("render.bin_mesh.slab")
+_BIN_UPLOAD = span("render.bin_mesh.upload")
 
 
 class BinnedMesh(NamedTuple):
@@ -131,107 +135,116 @@ def bin_mesh(
     offset scales radially by |u - c|*oz/(z - oz).
 
     The arrays are uploaded to `device`; `device=None` keeps them in numpy.
+    Its host time splits into three ranges: `render.bin_mesh.build` (the
+    projection, the culls and margins, the (face, tile) pairs, their sort and
+    slots), `render.bin_mesh.slab` (the [tiles, 16, C] slab and the texture's
+    downsample and pad) and `render.bin_mesh.upload`.
     """
-    Tcw_center = np.asarray(Tcw_center, np.float64)
-    K = np.asarray(K, np.float64)
-    v = mesh.vertices.astype(np.float64)
-    f = mesh.faces.astype(np.int64)
-    pc = v @ Tcw_center[:3, :3].T + Tcw_center[:3, 3]
-    z = pc[:, 2]
-    z_safe = np.where(z > 1e-6, z, 1e-6)
-    u = K[0, 0] * pc[:, 0] / z_safe + K[0, 2]
-    w_px = K[1, 1] * pc[:, 1] / z_safe + K[1, 2]
+    with _BIN_BUILD():
+        Tcw_center = np.asarray(Tcw_center, np.float64)
+        K = np.asarray(K, np.float64)
+        v = mesh.vertices.astype(np.float64)
+        f = mesh.faces.astype(np.int64)
+        pc = v @ Tcw_center[:3, :3].T + Tcw_center[:3, 3]
+        z = pc[:, 2]
+        z_safe = np.where(z > 1e-6, z, 1e-6)
+        u = K[0, 0] * pc[:, 0] / z_safe + K[0, 2]
+        w_px = K[1, 1] * pc[:, 1] / z_safe + K[1, 2]
 
-    tz = z[f]  # [F, 3]
-    tu = u[f]
-    tv = w_px[f]
-    # keep faces fully in front of the near plane and not entirely past far
-    keep = (tz.min(1) > near) & (tz.min(1) < far)
-    off = np.broadcast_to(np.abs(np.asarray(max_offset, np.float64)), (3,))
-    zmin = np.maximum(tz.min(1), 1e-3)
-    z_after = np.maximum(zmin - off[2], 0.5 * zmin)  # worst-case z shrink
-    radial = off[2] / z_after  # |u-c| scale factor from the z offset
-    mx = 2.0 + K[0, 0] * off[0] / z_after + np.abs(tu - K[0, 2]).max(1) * radial
-    my = 2.0 + K[1, 1] * off[1] / z_after + np.abs(tv - K[1, 2]).max(1) * radial
-    x_lo = np.floor(tu.min(1) - mx).astype(np.int64)
-    x_hi = np.ceil(tu.max(1) + mx).astype(np.int64)
-    y_lo = np.floor(tv.min(1) - my).astype(np.int64)
-    y_hi = np.ceil(tv.max(1) + my).astype(np.int64)
-    keep &= (x_hi >= 0) & (x_lo < width) & (y_hi >= 0) & (y_lo < height)
+        tz = z[f]  # [F, 3]
+        tu = u[f]
+        tv = w_px[f]
+        # keep faces fully in front of the near plane and not entirely past far
+        keep = (tz.min(1) > near) & (tz.min(1) < far)
+        off = np.broadcast_to(np.abs(np.asarray(max_offset, np.float64)), (3,))
+        zmin = np.maximum(tz.min(1), 1e-3)
+        z_after = np.maximum(zmin - off[2], 0.5 * zmin)  # worst-case z shrink
+        radial = off[2] / z_after  # |u-c| scale factor from the z offset
+        mx = 2.0 + K[0, 0] * off[0] / z_after + np.abs(tu - K[0, 2]).max(1) * radial
+        my = 2.0 + K[1, 1] * off[1] / z_after + np.abs(tv - K[1, 2]).max(1) * radial
+        x_lo = np.floor(tu.min(1) - mx).astype(np.int64)
+        x_hi = np.ceil(tu.max(1) + mx).astype(np.int64)
+        y_lo = np.floor(tv.min(1) - my).astype(np.int64)
+        y_hi = np.ceil(tv.max(1) + my).astype(np.int64)
+        keep &= (x_hi >= 0) & (x_lo < width) & (y_hi >= 0) & (y_lo < height)
 
-    tiles_y = _pad_up(height, TILE_H) // TILE_H
-    tiles_x = _pad_up(width, TILE_W) // TILE_W
-    n_tiles = tiles_y * tiles_x
-    tx_lo = np.clip(x_lo // TILE_W, 0, tiles_x - 1)
-    tx_hi = np.clip(x_hi // TILE_W, 0, tiles_x - 1)
-    ty_lo = np.clip(y_lo // TILE_H, 0, tiles_y - 1)
-    ty_hi = np.clip(y_hi // TILE_H, 0, tiles_y - 1)
+        tiles_y = _pad_up(height, TILE_H) // TILE_H
+        tiles_x = _pad_up(width, TILE_W) // TILE_W
+        n_tiles = tiles_y * tiles_x
+        tx_lo = np.clip(x_lo // TILE_W, 0, tiles_x - 1)
+        tx_hi = np.clip(x_hi // TILE_W, 0, tiles_x - 1)
+        ty_lo = np.clip(y_lo // TILE_H, 0, tiles_y - 1)
+        ty_hi = np.clip(y_hi // TILE_H, 0, tiles_y - 1)
 
-    face_ids = np.nonzero(keep)[0]
-    # vectorized (face, tile) pair expansion: spans are data-dependent but
-    # bounded, so enumerate (dy, dx) span offsets up to the max span and mask
-    sy = ty_hi[face_ids] - ty_lo[face_ids] + 1
-    sx = tx_hi[face_ids] - tx_lo[face_ids] + 1
-    max_sy = int(sy.max(initial=1))
-    max_sx = int(sx.max(initial=1))
-    pair_tiles = []
-    pair_faces = []
-    for dy in range(max_sy):
-        for dx in range(max_sx):
-            m = (dy < sy) & (dx < sx)
-            fi = face_ids[m]
-            pair_tiles.append((ty_lo[fi] + dy) * tiles_x + (tx_lo[fi] + dx))
-            pair_faces.append(fi)
-    pair_tiles = np.concatenate(pair_tiles) if pair_tiles else np.zeros(0, np.int64)
-    pair_faces = np.concatenate(pair_faces) if pair_faces else np.zeros(0, np.int64)
+        face_ids = np.nonzero(keep)[0]
+        # vectorized (face, tile) pair expansion: spans are data-dependent but
+        # bounded, so enumerate (dy, dx) span offsets up to the max span and mask
+        sy = ty_hi[face_ids] - ty_lo[face_ids] + 1
+        sx = tx_hi[face_ids] - tx_lo[face_ids] + 1
+        max_sy = int(sy.max(initial=1))
+        max_sx = int(sx.max(initial=1))
+        pair_tiles = []
+        pair_faces = []
+        for dy in range(max_sy):
+            for dx in range(max_sx):
+                m = (dy < sy) & (dx < sx)
+                fi = face_ids[m]
+                pair_tiles.append((ty_lo[fi] + dy) * tiles_x + (tx_lo[fi] + dx))
+                pair_faces.append(fi)
+        pair_tiles = np.concatenate(pair_tiles) if pair_tiles else np.zeros(0, np.int64)
+        pair_faces = np.concatenate(pair_faces) if pair_faces else np.zeros(0, np.int64)
 
-    if len(pair_tiles):
-        counts = np.bincount(pair_tiles, minlength=n_tiles)
-        capacity = min(_pad_up(max(int(counts.max()), 1), 128), MAX_CAPACITY)
-        order = np.argsort(pair_tiles, kind="stable")
-        pt = pair_tiles[order]
-        pf = pair_faces[order]
-        slot = np.arange(len(pt)) - np.searchsorted(pt, pt, side="left")
-        ok = slot < capacity
-        overflow = int((~ok).sum())
-    else:
-        capacity, overflow = 128, 0
-        pt = pf = slot = np.zeros(0, np.int64)
-        ok = np.zeros(0, bool)
+        if len(pair_tiles):
+            counts = np.bincount(pair_tiles, minlength=n_tiles)
+            capacity = min(_pad_up(max(int(counts.max()), 1), 128), MAX_CAPACITY)
+            order = np.argsort(pair_tiles, kind="stable")
+            pt = pair_tiles[order]
+            pf = pair_faces[order]
+            slot = np.arange(len(pt)) - np.searchsorted(pt, pt, side="left")
+            ok = slot < capacity
+            overflow = int((~ok).sum())
+        else:
+            capacity, overflow = 128, 0
+            pt = pf = slot = np.zeros(0, np.int64)
+            ok = np.zeros(0, bool)
 
-    tri_ids = np.full((n_tiles, capacity), -1, np.int32)
-    tri_ids[pt[ok], slot[ok]] = pf[ok]
+        tri_ids = np.full((n_tiles, capacity), -1, np.int32)
+        tri_ids[pt[ok], slot[ok]] = pf[ok]
 
-    vt = mesh.vertices.astype(np.float32)
-    uvs = mesh.uvs.astype(np.float32)
-    gathered = np.where(tri_ids >= 0, tri_ids, 0)
-    fv = mesh.faces[gathered]  # [n_tiles, C, 3] vertex ids
-    data = np.zeros((n_tiles, 16, capacity), np.float32)
-    for k in range(3):
-        data[:, 3 * k + 0, :] = vt[fv[:, :, k], 0]
-        data[:, 3 * k + 1, :] = vt[fv[:, :, k], 1]
-        data[:, 3 * k + 2, :] = vt[fv[:, :, k], 2]
-        data[:, 9 + 2 * k, :] = uvs[fv[:, :, k], 0]
-        data[:, 9 + 2 * k + 1, :] = uvs[fv[:, :, k], 1]
-    data[:, 15, :] = (tri_ids >= 0).astype(np.float32)
+    with _BIN_SLAB():
+        vt = mesh.vertices.astype(np.float32)
+        uvs = mesh.uvs.astype(np.float32)
+        gathered = np.where(tri_ids >= 0, tri_ids, 0)
+        fv = mesh.faces[gathered]  # [n_tiles, C, 3] vertex ids
+        data = np.zeros((n_tiles, 16, capacity), np.float32)
+        for k in range(3):
+            data[:, 3 * k + 0, :] = vt[fv[:, :, k], 0]
+            data[:, 3 * k + 1, :] = vt[fv[:, :, k], 1]
+            data[:, 3 * k + 2, :] = vt[fv[:, :, k], 2]
+            data[:, 9 + 2 * k, :] = uvs[fv[:, :, k], 0]
+            data[:, 9 + 2 * k + 1, :] = uvs[fv[:, :, k], 1]
+        data[:, 15, :] = (tri_ids >= 0).astype(np.float32)
 
-    tex_pad, tex_hw = _downsample_texture(mesh.texture_gray, MAX_TEX_DIM)
-    binned = BinnedMesh(
-        tri_data=data,
-        tri_ids=np.maximum(tri_ids, 0),
-        verts=vt,
-        uvs=uvs,
-        faces=mesh.faces.astype(np.int32),
-        texture=tex_pad,
-        tex_hw=tex_hw,
-        tiles_y=tiles_y,
-        tiles_x=tiles_x,
-        height=height,
-        width=width,
-        capacity=capacity,
-        overflow=overflow,
-    )
-    return binned if device is None else to_device(binned, device)
+        tex_pad, tex_hw = _downsample_texture(mesh.texture_gray, MAX_TEX_DIM)
+        binned = BinnedMesh(
+            tri_data=data,
+            tri_ids=np.maximum(tri_ids, 0),
+            verts=vt,
+            uvs=uvs,
+            faces=mesh.faces.astype(np.int32),
+            texture=tex_pad,
+            tex_hw=tex_hw,
+            tiles_y=tiles_y,
+            tiles_x=tiles_x,
+            height=height,
+            width=width,
+            capacity=capacity,
+            overflow=overflow,
+        )
+    if device is None:
+        return binned
+    with _BIN_UPLOAD():
+        return to_device(binned, device)
 
 
 def _tile_texture_windows(data: np.ndarray, tex_pad_shape, tex_hw,

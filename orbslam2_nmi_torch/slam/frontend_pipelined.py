@@ -29,6 +29,14 @@ packed buffer's readback is split (`utils/readback.HostCopy`): the copy
 is queued with frame i's dispatch and waited for only after frame i+1 has
 been dispatched. `FusedTrackStep.replay` returns copies of the graph's
 outputs, so frame i+1's replay cannot overwrite frame i's buffer.
+
+Tracing (`utils/profiling`): while a profiler runs, the front-end's phases
+run inside ranges of their own (`frontend.dispatch`, `frontend.map_lock`,
+`frontend.candidates`, `frontend.readback_wait`, `frontend.process`,
+`frontend.keyframe`, `frontend.nmi_backpressure`, `frontend.classic`), and
+each frame's record (`records`) keeps its host times whether or not one
+runs. The records and `completion_walls` keep the newest `FRAME_RECORDS`
+frames.
 """
 
 from __future__ import annotations
@@ -43,9 +51,36 @@ from orbslam2_nmi_torch.slam import fused_track
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.slam.tracking import TrackingState, TrackResult
 from orbslam2_nmi_torch.utils.readback import HostCopy
-from orbslam2_nmi_torch.utils.profiling import labelled
+from orbslam2_nmi_torch.utils import profiling
+from orbslam2_nmi_torch.utils.profiling import labelled, span
 
 FRUSTUM_MARGIN = 64.0  # px, the candidate pre-filter's margin
+FRAME_RECORDS = 8192  # frames whose record and completion time are kept
+
+_MAP_LOCK = span("frontend.map_lock")
+_READBACK_WAIT = span("frontend.readback_wait")
+_KEYFRAME = span("frontend.keyframe")
+_NMI_BACKPRESSURE = span("frontend.nmi_backpressure")
+_CLASSIC = span("frontend.classic")
+
+
+class _MapHeld:
+    """`with _MapHeld(lock) as held:` holds the map lock, taken inside a
+    `frontend.map_lock` range; `held.wait_ms` is the wait for it."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.wait_ms = 0.0
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        with _MAP_LOCK():
+            self.lock.acquire()
+        self.wait_ms = (time.perf_counter() - t0) * 1e3
+        return self
+
+    def __exit__(self, *exc):
+        self.lock.release()
 
 
 def local_candidates(m, cfg, kfs: np.ndarray, ref_kf: int, Tcw_last, n_cand: int):
@@ -181,13 +216,18 @@ class PipelinedFrontend:
         # completions are the real per-frame latencies, with anchor landings
         # and keyframe stalls in the tail (the reference times every frame,
         # mono_ETH.cc:107-151)
-        self.completion_walls: dict = {}
+        self.completion_walls = profiling.Newest(FRAME_RECORDS)
         # per-frame host records: path ("fused" / "classic"), its host ms,
-        # and for fused frames the waits for the map lock (dispatch and
-        # processing), the candidate build, the dispatch, the wait for the
-        # readback, the processing (lock wait excluded), reseeds, rebases and
-        # the keyframe decision's inputs (`Tracker.kf_check`)
-        self.records: dict = {}
+        # the NMI backpressure wait charged to it (`nmi_wait_ms`), its start
+        # and completion on the profiler's clock (`t_dispatch_ns`,
+        # `t_done_ns`), and for fused frames the waits for the map lock
+        # (dispatch and processing), the candidate build, the dispatch, the
+        # step's host time and its parts (`FusedTrackStep.times`), the wait
+        # for the readback, the processing (lock wait excluded), the keyframe
+        # made (`kf`, `kf_ms`), reseeds, rebases and the keyframe decision's
+        # inputs (`Tracker.kf_check`)
+        self.records = profiling.Newest(FRAME_RECORDS)
+        self._nmi_wait_ms = 0.0  # backpressure wait not yet charged to a frame
         self.n_rewinds = {"fail": 0, "reseed": 0}
         self.n_rebases = 0
 
@@ -210,7 +250,10 @@ class PipelinedFrontend:
             # (outside the map lock: the worker's landing takes it)
             worker = getattr(self.sys, "nmi_worker", None)
             if worker is not None and tr.nmi_due_skips >= 2 and worker.busy():
-                worker.flush(timeout=600.0)
+                t0 = time.perf_counter()
+                with _NMI_BACKPRESSURE():
+                    worker.flush(timeout=600.0)
+                self._nmi_wait_ms += (time.perf_counter() - t0) * 1e3
                 tr.nmi_due_skips = 0
             if tr.state == TrackingState.OK and self._carry is not None and i < n:
                 inflight.append(self._dispatch(frames[i], i))
@@ -230,13 +273,17 @@ class PipelinedFrontend:
             if i >= n:
                 break
             # the classic path (init / lost / recovery / first frame after a fail)
+            t_ns = profiling.clock_ns()
             t0 = time.perf_counter()
-            res = tr.process_frame(start_id + i, float(timestamps[i]), frames[i])
+            with _CLASSIC():
+                res = tr.process_frame(start_id + i, float(timestamps[i]), frames[i])
             t1 = time.perf_counter()
             results[i] = res
             self.completion_walls[start_id + i] = t1
             self.records[start_id + i] = dict(path="classic", ms=(t1 - t0) * 1e3,
-                                              state=res.state.name)
+                                              state=res.state.name,
+                                              nmi_wait_ms=self._take_nmi_wait(),
+                                              t_dispatch_ns=t_ns, t_done_ns=profiling.clock_ns())
             i += 1
             if res.state == TrackingState.OK and tr.last_frame is not None \
                     and tr.last_frame.Tcw is not None:
@@ -262,9 +309,15 @@ class PipelinedFrontend:
 
     # ------------------------------------------------------------- internals
 
+    def _take_nmi_wait(self) -> float:
+        """The backpressure wait not yet charged to a frame, charged now."""
+        ms, self._nmi_wait_ms = self._nmi_wait_ms, 0.0
+        return ms
+
+    @labelled("frontend.dispatch")
     def _dispatch(self, gray, idx: int):
-        t0 = time.perf_counter()
-        with self.sys.map.lock:
+        t_ns = profiling.clock_ns()
+        with _MapHeld(self.sys.map.lock) as held:
             t_lock = time.perf_counter()
             cand_ids, arrays = self._local_candidates()
         t1 = time.perf_counter()
@@ -278,10 +331,14 @@ class PipelinedFrontend:
         self._carry = out.carry
         self._carry_src = self._start + idx
         t2 = time.perf_counter()
-        return (idx, packed, src, cand_ids, dict(lock_ms=(t_lock - t0) * 1e3,
+        # the step's host times (a step a caller wrapped may keep none)
+        return (idx, packed, src, cand_ids, dict(lock_ms=held.wait_ms,
                                                  cand_ms=(t1 - t_lock) * 1e3,
-                                                 dispatch_ms=(t2 - t1) * 1e3))
+                                                 dispatch_ms=(t2 - t1) * 1e3,
+                                                 **getattr(self.step, "times", {}),
+                                                 t_dispatch_ns=t_ns))
 
+    @labelled("frontend.candidates")
     def _local_candidates(self):
         """The candidate arrays from the most recently PROCESSED frame (one
         frame stale): `local_candidates` over its local keyframes, the
@@ -291,6 +348,7 @@ class PipelinedFrontend:
         return local_candidates(self.sys.map, self.cfg, kfs, tr.ref_kf, tr.last_frame.Tcw,
                                 self.n_cand)
 
+    @labelled("frontend.process")
     def _process(self, item, frames, timestamps, results):
         """Read back and process one fused frame on the host. Returns True on
         success, "fail" when the frame misses the tracking gates, or
@@ -299,7 +357,9 @@ class PipelinedFrontend:
         tr = self.tracker
         fid = self._start + idx
         t0 = time.perf_counter()
-        u = fused_track.unpack_step(packed.wait(), self.n_feat, self.n_cand)
+        with _READBACK_WAIT():
+            buf = packed.wait()
+        u = fused_track.unpack_step(buf, self.n_feat, self.n_cand)
         t1 = time.perf_counter()
         if u.n_matches1 < 20 or u.n_inliers < 10:
             self.records[fid] = dict(rec, path="fused", wait_ms=(t1 - t0) * 1e3,
@@ -311,9 +371,8 @@ class PipelinedFrontend:
         bound = mp_idx >= 0
 
         rebased = False
-        t_wait = time.perf_counter()
-        with self.sys.map.lock:
-            p_lock = (time.perf_counter() - t_wait) * 1e3
+        with _MapHeld(self.sys.map.lock) as held:
+            p_lock = held.wait_ms
             m = self.sys.map
             if m.version != self._seen_version:
                 # An async map correction (BA write-back, NMI anchor, loop,
@@ -338,10 +397,14 @@ class PipelinedFrontend:
 
             is_kf = False
             nmi_reloc = False
+            made = {}
             tr.kf_check = None
             if tr._need_new_keyframe(frame, u.n_inliers):
-                tr._gray = frames[idx]
-                nmi_reloc = tr.keyframe_with_nmi(frame)
+                t_kf = time.perf_counter()
+                with _KEYFRAME():
+                    tr._gray = frames[idx]
+                    nmi_reloc = tr.keyframe_with_nmi(frame)
+                made = dict(kf=int(tr.ref_kf), kf_ms=(time.perf_counter() - t_kf) * 1e3)
                 is_kf = True
                 self._reseed = True  # the map mutated: re-anchor the device chain
 
@@ -375,7 +438,8 @@ class PipelinedFrontend:
                                  outcome="reseed" if reseed else "ok",
                                  keyframe=is_kf, rebased=rebased, n_matches1=u.n_matches1,
                                  n_inliers=u.n_inliers, n_cand=int(len(cand_ids)),
-                                 kf_check=tr.kf_check)
+                                 kf_check=tr.kf_check, nmi_wait_ms=self._take_nmi_wait(),
+                                 t_done_ns=profiling.clock_ns(), **made)
         return "reseed" if reseed else True
 
     def rebase(self, frame: FrameData) -> np.ndarray:

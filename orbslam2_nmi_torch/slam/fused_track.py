@@ -40,6 +40,7 @@ Where the port differs, or is likely to trip:
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -52,6 +53,7 @@ from orbslam2_nmi_torch.ops import matching
 from orbslam2_nmi_torch.ops.orb import Features, extract_orb
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.solvers import pose_gn
+from orbslam2_nmi_torch.utils import profiling
 from orbslam2_nmi_torch.utils.profiling import labelled
 
 
@@ -116,6 +118,11 @@ class FusedTrackStep:
     n_cand). `extract`, `motion_match`, `pose`, `local_match` and `finish`
     are the step's stages, callable alone for timing; `run_eager` runs them
     in order. Runs on CUDA unless `device="cpu"`.
+
+    `times` holds the host ms of the last call (`step_host_ms`) and its
+    parts: the copies into the graph's static inputs (`step_in_ms`), the
+    replay (`launch_ms`) and the copies of its outputs (`step_out_ms`). On
+    the CPU `launch_ms` is the eager run and the copies are 0.
     """
 
     def __init__(self, cfg: SystemConfig, n_cand: int = 2048, device="cuda"):
@@ -134,6 +141,7 @@ class FusedTrackStep:
         self._graph = None
         self._static_in = None
         self._static_out = None
+        self.times = dict(step_host_ms=0.0, step_in_ms=0.0, launch_ms=0.0, step_out_ms=0.0)
 
     # ------------------------------------------------------------- stages
 
@@ -275,6 +283,7 @@ class FusedTrackStep:
         (`slam/pipeline.py`) and the async NMI worker launch, allocate and
         synchronize from their own threads, which the default global mode
         would turn into a failed capture."""
+        t0 = time.perf_counter()
         flat = [args[0], *args[1], *args[2:]]
         self._static_in = [a.clone() for a in flat]
         side = torch.cuda.Stream(self.device)
@@ -287,6 +296,7 @@ class FusedTrackStep:
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._static_out = self._run_static()
         self._graph = graph
+        profiling.record_setup("fused_step.capture", time.perf_counter() - t0)
 
     def _run_static(self) -> StepOutputs:
         s = self._static_in
@@ -295,23 +305,36 @@ class FusedTrackStep:
     def replay(self, gray_u8, carry: TrackCarry, *cand) -> StepOutputs:
         """The captured step on these inputs: copy them into the graph's
         static inputs, replay, and return copies of its static outputs."""
+        t0 = time.perf_counter()
         for dst, src in zip(self._static_in, [gray_u8, *carry, *cand], strict=True):
             dst.copy_(src)
+        t1 = time.perf_counter()
         self._graph.replay()
+        t2 = time.perf_counter()
         out = self._static_out
-        return StepOutputs(carry=TrackCarry(*(t.clone() for t in out.carry)),
-                           packed=out.packed.clone())
+        out = StepOutputs(carry=TrackCarry(*(t.clone() for t in out.carry)),
+                          packed=out.packed.clone())
+        t3 = time.perf_counter()
+        self.times.update(step_in_ms=(t1 - t0) * 1e3, launch_ms=(t2 - t1) * 1e3,
+                          step_out_ms=(t3 - t2) * 1e3)
+        return out
 
     @labelled("fused_step")
     def __call__(self, gray_u8, carry: TrackCarry, cand_pts, cand_desc, cand_min_d,
                  cand_max_d, cand_normal, cand_valid) -> StepOutputs:
+        t0 = time.perf_counter()
         args = (gray_u8, carry, cand_pts, cand_desc, cand_min_d, cand_max_d, cand_normal,
                 cand_valid)
         if self.device.type != "cuda":
-            return self.run_eager(*args)
-        if self._graph is None:
-            self.capture(*args)
-        return self.replay(*args)
+            out = self.run_eager(*args)
+            self.times.update(step_in_ms=0.0, launch_ms=(time.perf_counter() - t0) * 1e3,
+                              step_out_ms=0.0)
+        else:
+            if self._graph is None:
+                self.capture(*args)
+            out = self.replay(*args)
+        self.times["step_host_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
 
 
 class UnpackedStep(NamedTuple):

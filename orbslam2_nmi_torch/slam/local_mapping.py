@@ -20,8 +20,9 @@ Where the port differs:
   * The epoch and version checks and the lock discipline are the JAX
     package's: map mutations hold `map.lock`, the BA's device solve does not,
     and a result computed against a map that a reset wiped is discarded.
-  * `records` keeps, for each processed keyframe, the time of each phase and
-    the sizes of its local BA (`last_ba`), read by `chip_smoke.py`.
+  * `records` keeps, for each processed keyframe, the time of each phase,
+    the sizes of its local BA (`last_ba`) and its wait in the mapping queue
+    (`queued_ms`), read by `chip_smoke.py`; the newest `KEYFRAME_RECORDS`.
   * A rejected local BA is logged and, when `ORBSLAM2_NMI_TORCH_DUMP_BAD_BA`
     names a directory, dumped there as `bad_ba_{O}.npz` with the JAX
     package's keys (its `ORBSLAM2_NMI_TPU_DUMP_BAD_BA`, local_mapping.py:
@@ -48,6 +49,7 @@ from orbslam2_nmi_torch.utils.readback import to_host
 
 # names a directory into which a rejected local BA's problem is dumped
 DUMP_BAD_BA = "ORBSLAM2_NMI_TORCH_DUMP_BAD_BA"
+KEYFRAME_RECORDS = 1024  # keyframes whose record is kept
 
 
 def _next_pow2(n: int, lo: int = 64) -> int:
@@ -82,16 +84,19 @@ class LocalMapper:
 
     # ------------------------------------------------------------- pipeline
 
-    def process_keyframe(self, k: int, abort_fn=None):
+    def process_keyframe(self, k: int, abort_fn=None, queued_at: float | None = None):
         """LocalMapping::Run body for one queued KF (LocalMapping.cc:50-115).
 
         `abort_fn` is the InterruptBA hook (LocalMapping.cc mbAbortBA): when it
         returns True (a newer KF is already queued), the local BA is skipped —
         it reruns at the newer KF, which is the reference's net behavior. Map
         mutations run under the map lock; the BA device solve does not.
+        `queued_at` is the `time.perf_counter()` at which the KF was queued
+        (None: it was not).
         """
         t0 = time.perf_counter()
-        rec = {"kf": int(k), "t_start": t0}
+        rec = {"kf": int(k), "t_start": t0,
+               "queued_ms": 0.0 if queued_at is None else (t0 - queued_at) * 1e3}
         with self.map.lock:
             # a System::Reset may have wiped the map while this KF sat in the
             # queue (the reference drains the mapping thread during Reset,
@@ -129,6 +134,7 @@ class LocalMapper:
         rec["t_end"] = time.perf_counter()
         rec["total_ms"] = (rec["t_end"] - t0) * 1e3
         self.records.append(rec)
+        del self.records[:-KEYFRAME_RECORDS]
 
     def _refresh_point_stats(self, k: int):
         for f in np.nonzero(self.map.kf_mp_idx[k] >= 0)[0]:

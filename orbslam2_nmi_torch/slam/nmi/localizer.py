@@ -31,6 +31,11 @@ Where it differs from the JAX localizer, on purpose:
     the gray levels in one byte: more than 256 bins score as 256, which is
     the reference's result on frames and renders in [0, 255].
 
+Tracing (`utils/profiling`): a relocalization runs inside `nmi.relocalize`,
+each sweep inside `nmi.sweep`, and the readback of its scores inside
+`nmi.readback` (on the async NMI worker that readback holds the interpreter
+lock while the device finishes).
+
 Sign conventions: translation candidates move the camera center along its own
 axes, offset_cam = (i - (n-1)/2) * step per axis (x right, y down, z forward);
 rotation candidates compose camera-frame R = Rz Ry Rx on the right of Twc.
@@ -51,8 +56,10 @@ from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
 from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
-from orbslam2_nmi_torch.utils.profiling import labelled
+from orbslam2_nmi_torch.utils.profiling import labelled, span
 from orbslam2_nmi_torch.utils.readback import to_host
+
+_READBACK = span("nmi.readback")
 
 
 @dataclass
@@ -178,7 +185,9 @@ class NMILocalizer:
         scaled intrinsics), used for the coarse iterations of the search (the
         FINAL iteration always runs at full resolution)."""
         sweep = self.prepare_sweep(frame_gray, Tcw, kernel, scale)
-        return self.score_sweep(self.render_sweep(sweep), self.warp_sweep(sweep)).cpu().numpy()
+        scores = self.score_sweep(self.render_sweep(sweep), self.warp_sweep(sweep))
+        with _READBACK():
+            return scores.cpu().numpy()
 
     # The stages of one `evaluate_grid`, callable alone so that a grid can be
     # timed stage by stage or re-scored against other versions of its kernels.
@@ -242,6 +251,7 @@ class NMILocalizer:
 
     # ------------------------------------------------------------- one round
 
+    @labelled("nmi.sweep")
     def relocalize_once(
         self, frame_gray: torch.Tensor, Tcw: np.ndarray, kernel: sk.SearchKernel,
         scale: int = 1,
@@ -317,6 +327,7 @@ class NMILocalizer:
 
     # ------------------------------------------------------------- strategy
 
+    @labelled("nmi.relocalize")
     def relocalize_strategy(
         self,
         frame_gray: torch.Tensor,

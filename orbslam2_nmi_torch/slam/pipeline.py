@@ -31,6 +31,10 @@ stream only. `system` is any object with `map`, `local_mapper`,
 (the vocabulary may train then, and the loop closer appear); once it
 exists, the worker runs loop closing on each keyframe after local mapping,
 and the closer's global BA comes back here (`launch_global_ba`).
+
+Tracing: the worker maps each keyframe inside a `mapping.keyframe` range,
+and the keyframe's record (`LocalMapper.records`) keeps how long it waited
+in the queue (`queued_ms`, from `insert_keyframe` to the worker taking it).
 """
 
 from __future__ import annotations
@@ -45,7 +49,10 @@ from typing import Optional
 import torch
 
 from orbslam2_nmi_torch.solvers import local_ba
+from orbslam2_nmi_torch.utils.profiling import span
 from orbslam2_nmi_torch.utils.readback import to_host
+
+_MAPPING_KEYFRAME = span("mapping.keyframe")
 
 
 class MappingPipeline:
@@ -79,7 +86,7 @@ class MappingPipeline:
         with self._pending_lock:
             self._pending += 1
             self._drained.clear()
-        self.q.put(int(k))
+        self.q.put(("kf", int(k), time.perf_counter()))
 
     def insert_ba(self, k: int, epoch: int):
         """Queue a standalone local BA around keyframe k (the async NMI
@@ -122,11 +129,14 @@ class MappingPipeline:
                 self._interrupt = False
                 sysm = self.system
                 with self._on_stream():
-                    if isinstance(k, tuple):  # ("ba", k, epoch): post-anchor BA
+                    if k[0] == "ba":  # ("ba", k, epoch): post-anchor BA
                         _, kk, epoch = k
                         sysm.local_mapper.local_bundle_adjust(kk, epoch=epoch)
                         continue
-                    sysm.local_mapper.process_keyframe(k, abort_fn=self.abort_requested)
+                    _, k, queued_at = k  # ("kf", k, when it was queued)
+                    with _MAPPING_KEYFRAME():
+                        sysm.local_mapper.process_keyframe(k, abort_fn=self.abort_requested,
+                                                           queued_at=queued_at)
                     with sysm.map.lock:
                         if sysm.loop_closer is None:
                             sysm.ensure_vocabulary(sysm.map.kf_feat_desc[k],

@@ -36,6 +36,7 @@ Where the port differs:
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import Callable, Optional
@@ -52,6 +53,7 @@ from orbslam2_nmi_torch.slam import initialization
 from orbslam2_nmi_torch.slam.frame import FrameData
 from orbslam2_nmi_torch.slam.map_store import MapStore
 from orbslam2_nmi_torch.solvers import pnp, pose_gn, two_view_init
+from orbslam2_nmi_torch.utils import profiling
 from orbslam2_nmi_torch.utils.bucketing import bucket, pad_rows, row_mask
 from orbslam2_nmi_torch.utils.readback import to_host
 
@@ -325,7 +327,7 @@ class Tracker:
                 self._reinit_fails = 0
             else:
                 frame.Tcw = self._init_T1.copy()
-                self._run_nmi(frame, initializing=True)
+                self._init_latch(frame, "nmi.init_latch.1")
             self.init_frame = frame
             return TrackResult(self.state, frame.Tcw, 0, False)
 
@@ -344,7 +346,7 @@ class Tracker:
                 return TrackResult(self.state, None, 0, False)
         else:
             frame.Tcw = (self._init_T2 if self._init_T2 is not None else self._init_T1).copy()
-            self._run_nmi(frame, initializing=True)
+            self._init_latch(frame, "nmi.init_latch.2")
 
         res = initialization.create_initial_map(
             self.cfg, self.map, self.local_mapper, self.init_frame, frame,
@@ -931,6 +933,15 @@ class Tracker:
         return self.system.nmi_worker.submit(self.ref_kf, self._gray_f32(), frame.Tcw,
                                              self.dist_since_nmi, self.rot_since_nmi,
                                              frame.frame_id)
+
+    def _init_latch(self, frame: FrameData, name: str) -> None:
+        """An initialization's NMI latch; its seconds are the set-up counter
+        `name` (`utils/profiling.SETUP`). Without a localizer there is none."""
+        if self.nmi is None:
+            return
+        t0 = time.perf_counter()
+        self._run_nmi(frame, initializing=True)
+        profiling.record_setup(name, time.perf_counter() - t0)
 
     def _run_nmi(self, frame: FrameData, initializing: bool, search_scale: float = 1.0) -> bool:
         if self.nmi is None:

@@ -29,11 +29,13 @@ Where the port differs:
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from orbslam2_nmi_torch.utils import profiling
 from orbslam2_nmi_torch.utils.profiling import labelled
 from orbslam2_nmi_torch.utils.readback import to_host
 
@@ -184,14 +186,19 @@ class Vocabulary:
     def load(path: str) -> "Vocabulary":
         """Load either our .npz serialization or a DBoW2 text vocabulary
         (ORBvoc.txt, optionally .tar.gz/.gz-compressed as released by the
-        reference — System.cc:87 loads the extracted .txt)."""
+        reference — System.cc:87 loads the extracted .txt). The first load's
+        seconds are the set-up counter `vocabulary.load`."""
+        t0 = time.perf_counter()
         if path.endswith((".txt", ".txt.tar.gz", ".txt.gz", ".tar.gz")):
-            return Vocabulary.load_dbow2_text(path)
-        z = np.load(path)
-        return Vocabulary(
-            k=int(z["k"]), depth=int(z["depth"]), node_desc=z["node_desc"],
-            children=z["children"], leaf_id=z["leaf_id"], word_weight=z["word_weight"],
-        )
+            voc = Vocabulary.load_dbow2_text(path)
+        else:
+            z = np.load(path)
+            voc = Vocabulary(
+                k=int(z["k"]), depth=int(z["depth"]), node_desc=z["node_desc"],
+                children=z["children"], leaf_id=z["leaf_id"], word_weight=z["word_weight"],
+            )
+        profiling.record_setup("vocabulary.load", time.perf_counter() - t0)
+        return voc
 
     @staticmethod
     def load_dbow2_text(path: str) -> "Vocabulary":

@@ -26,9 +26,8 @@ place is reported as `unattributed_ms_by_stream` and counted in "other".
 
 Output: one JSON dict with the JAX tool's keys ({subsystem: device ms},
 device ms a frame, the wall fps of the same run), and besides them the
-device's idle share over the traced window, computed as `tools/profile_*`
-compute it (1 - the summed device time / the window's wall time) and from
-the union of the operations' intervals (streams that overlap count once).
+device's idle share over the traced window, from the union of the
+operations' intervals (streams that overlap count once).
 """
 
 from __future__ import annotations
@@ -237,13 +236,12 @@ def device_label_times(prof) -> tuple:
 
 def _summary(times: dict, info: dict, n_frames: int, wall_s: float) -> dict:
     budget = budget_from_module_times(times, n_frames)
-    busy, union = info["device_busy_s"], info["device_union_s"]
+    union = info["device_union_s"]
     ranked = sorted(times.items(), key=lambda kv: -kv[1])
     budget.update(
         top_modules_ms={k: v * 1e3 for k, v in ranked[:TOP]},
         modules_ms={k: v * 1e3 for k, v in ranked},
         traced_wall_s=wall_s,
-        device_idle_share=1.0 - busy / wall_s if wall_s > 0 else None,
         device_idle_share_union=1.0 - union / wall_s if wall_s > 0 else None,
         **info,
     )
