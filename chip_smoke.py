@@ -165,6 +165,7 @@ Any failed check raises, and the script exits non-zero without the final
 line. It also exits non-zero when CUDA is absent or the package is missing.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -354,23 +355,67 @@ def _all_plain_scores(b, Tcw, K, offsets, near, warped, use_background):
     return _plain_nmi(img, warped, use_background)
 
 
-def plain_rescore(loc, frame, Tcw, kernel, scale, scores):
-    """Score a localizer grid again on the same sweep inputs (binning,
-    offsets, warped frame) with every kernel replaced by its plain version.
-    Plain versions launch nothing, so the launch counts are untouched.
-    Returns (max |scores - plain|, argmax, plain argmax, the sweep)."""
+def keep_sweeps(loc):
+    """Wrap `loc.prepare_sweep` so that it keeps the newest sweep it made, the
+    inputs that `plain_rescore` re-scores; `del loc.prepare_sweep` unwraps.
+    Returns the list that holds it."""
+    kept = []
+    prepare = loc.prepare_sweep
+
+    def prep(*a, **kw):
+        kept[:] = [prepare(*a, **kw)]
+        return kept[0]
+
+    loc.prepare_sweep = prep
+    return kept
+
+
+def _same_binning(dev, host):
+    """Whether a binning on the card equals the host's (numpy) bit for bit:
+    lists, slab, mesh arrays, capacity, overflow and tile counts."""
     import numpy as np
 
-    sw = loc.prepare_sweep(frame, Tcw, kernel, scale)
+    from orbslam2_nmi_torch.ops import raster
+
+    scalars = ("tex_hw", "tiles_y", "tiles_x", "height", "width", "capacity", "overflow")
+    if [getattr(dev, k) for k in scalars] != [getattr(host, k) for k in scalars]:
+        return False
+    for k in raster._ARRAY_FIELDS:
+        a, b = np.asarray(getattr(dev, k).cpu()), getattr(host, k)
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a.view(np.int32),
+                                                                          b.view(np.int32)):
+            return False
+    return True
+
+
+def plain_rescore(loc, sw, Tcw, scores):
+    """Score a localizer grid again on the inputs of its own sweep `sw`
+    (offsets, warped frame; `keep_sweeps`) with every kernel replaced by its
+    plain version, the binning included: a mesh is binned again on the host
+    (`device=None`), which must equal the sweep's binning bit for bit, and
+    the all-plain renders read the host's binning. Plain versions launch
+    nothing, so the launch counts are untouched. Returns (max |scores -
+    plain|, argmax, plain argmax, whether the binnings are equal; True for a
+    point model)."""
+    import numpy as np
+
+    from orbslam2_nmi_torch.ops import raster
+
     warped = loc.warp_sweep(sw)
     use_bg = loc.cfg.use_background
+    same = True
     if sw.binned is not None:
-        plain = _all_plain_scores(sw.binned, sw.Tcw, sw.K, sw.offsets, loc.cfg.render_near,
-                                  warped, use_bg)
+        host = raster.bin_mesh(loc.mesh, np.asarray(Tcw), sw.K, sw.height, sw.width,
+                               loc.cfg.render_near, loc.cfg.render_far,
+                               max_offset=np.abs(sw.offsets.cpu().numpy()).max(axis=0),
+                               device=None)
+        same = _same_binning(sw.binned, host)
+        plain = _all_plain_scores(raster.to_device(host, sw.Tcw.device), sw.Tcw, sw.K,
+                                  sw.offsets, loc.cfg.render_near, warped, use_bg)
     else:  # the splat is torch ops: only B1 and B2 have plain versions
         plain = _plain_nmi(loc.render_sweep(sw), warped, use_bg)
     plain = plain.cpu().numpy()
-    return float(np.abs(scores - plain).max()), int(scores.argmax()), int(plain.argmax()), sw
+    return float(np.abs(scores - plain).max()), int(scores.argmax()), int(plain.argmax()), same
 
 
 def localizer_phases(dev, smi, cuda_ms, check):
@@ -411,18 +456,20 @@ def localizer_phases(dev, smi, cuda_ms, check):
 
     record = {"plain_checks": []}
 
-    def plain_check(name, loc, frame, Tcw, kernel, scale, scores):
-        """Score the grid again on the same sweep inputs (binning, offsets,
-        warped frame) with every kernel replaced by its plain version; the
-        scores must agree within SCORE_ATOL, with the same argmax. Plain
-        versions launch nothing, so the launch counts are untouched."""
-        d, am, pm, sw = plain_rescore(loc, frame, Tcw, kernel, scale, scores)
+    def plain_check(name, loc, sw, Tcw, kernel, scale, scores):
+        """Score the grid again on its sweep's inputs (offsets, warped frame)
+        with every kernel replaced by its plain version, the mesh binned on
+        the host; the binning must equal the sweep's bit for bit, the scores
+        agree within SCORE_ATOL, with the same argmax. Plain versions launch
+        nothing, so the launch counts are untouched."""
+        d, am, pm, same = plain_rescore(loc, sw, Tcw, scores)
         what = f"{name}, first {kernel.n_synth} x {kernel.n_warp} grid at {sw.width}x{sw.height}"
         binning = ("" if sw.binned is None else f", binning tiles {sw.binned.tiles_y}x"
                    f"{sw.binned.tiles_x}, capacity {sw.binned.capacity}, overflow "
-                   f"{sw.binned.overflow}")
+                   f"{sw.binned.overflow}, equal to the host's {same}")
         print(f"  {what}{binning}: max |kernels - all-plain| {d}, argmax {am} vs {pm}, "
               f"best {scores.max():.6f}")
+        check(same, f"{what}: the sweep's binning equals the host's bit for bit")
         check(d <= SCORE_ATOL and am == pm,
               f"{what}: kernels agree with the all-plain run within {SCORE_ATOL}, same argmax")
         record["plain_checks"].append(dict(case=name, renders=kernel.n_synth,
@@ -435,12 +482,13 @@ def localizer_phases(dev, smi, cuda_ms, check):
         the all-plain run."""
         calls = []
         evaluate = loc.evaluate_grid
+        kept = keep_sweeps(loc)
 
         def rec(frame, Tcw, kernel, scale=1):
             scores = evaluate(frame, Tcw, kernel, scale)
             shape = (kernel.n_synth, kernel.n_warp, scale)
             if shape not in [c[:3] for c in calls]:
-                plain_check(name, loc, frame, Tcw, kernel, scale, scores)
+                plain_check(name, loc, kept[0], Tcw, kernel, scale, scores)
             calls.append(shape + (float(scores.max()),))
             return scores
 
@@ -464,9 +512,10 @@ def localizer_phases(dev, smi, cuda_ms, check):
         check(n == len(out.previous_poses) and n > 0, f"{name}: one pose kept a grid")
         use_bg = loc.cfg.use_background
         want = {"joint_entropy": n, "marginal_entropy": n if use_bg else 0,
-                "rasterize_keys": 0, "render_gray": n if mesh else 0}
+                "rasterize_keys": 0, "render_gray": n if mesh else 0,
+                "bin_count": n if mesh else 0, "bin_fill": n if mesh else 0}
         check(launches == want, f"{name}: launches {want}, one a grid evaluation")
-        del loc.evaluate_grid  # the recorder
+        del loc.evaluate_grid, loc.prepare_sweep  # the recorders
         ms, runs = wall_ms(lambda: loc.relocalize_strategy(frame, T.copy(), **kw))
         print(f"  {name}: {ms:.3f} ms a call (runs {[round(t, 3) for t in runs]}, after 1 "
               f"warm-up; {out.iterations} iterations, {n} grids)  [{smi}]")
@@ -476,7 +525,7 @@ def localizer_phases(dev, smi, cuda_ms, check):
 
     def split(loc, frame, T, kernel):
         """One sweep through the localizer's own stages, each timed alone:
-        prepare (host: the mesh's bin_mesh and the uploads), render, warp
+        prepare (the frame and the mesh's binning, kernels on the card), render, warp
         (with its host homography build), score, readback, and the whole
         evaluate_grid."""
         st = {}
@@ -784,6 +833,7 @@ def tracking_phase(dev, smi, check, check_raster):
         return times
 
     bin_runs = host_ms(lambda: raster.bin_mesh(world.mesh, T, K, H, W, near, far, device=None))
+    card_bin_runs = host_ms(lambda: raster.bin_mesh(world.mesh, T, K, H, W, near, far, device=dev))
     render_runs = host_ms(lambda: world.render_frames([TRACK_FIRST], TRACK_CIRCUIT, W, H,
                                                       device=dev))
     bin_ms, render_ms = float(np.mean(bin_runs)), float(np.mean(render_runs))
@@ -800,6 +850,8 @@ def tracking_phase(dev, smi, check, check_raster):
     print(f"  rendering one frame (render_frames: host binning, upload, render_gray), ms: mean "
           f"{render_ms:.3f} (runs {[round(t, 3) for t in render_runs]}); its host binning "
           f"alone (bin_mesh): mean {bin_ms:.3f} (runs {[round(t, 3) for t in bin_runs]}); "
+          f"the same binning on the card (bin_count, bin_fill): mean "
+          f"{float(np.mean(card_bin_runs)):.3f} (runs {[round(t, 3) for t in card_bin_runs]}); "
           f"each after 1 warm-up  [{smi}]")
     print(f"  phase took {time.perf_counter() - t_phase:.1f} s")
     return dict(frames=n, first=TRACK_FIRST, err_median_m=float(np.median(errs)),
@@ -874,6 +926,7 @@ def mapping_phase(dev, smi, check, cuda_ms):
     latch_no = [0]
     seen, grids, plain = set(), [], []
     evaluate, strategy = loc.evaluate_grid, loc.relocalize_strategy
+    kept = keep_sweeps(loc)
 
     def rec_strategy(*a, **kw):
         latch_no[0] += 1
@@ -885,11 +938,15 @@ def mapping_phase(dev, smi, check, cuda_ms):
         grids.append(key)
         if key not in seen:
             seen.add(key)
-            d, am, pm, sw = plain_rescore(loc, frame, Tcw, kernel, scale, scores)
+            sw = kept[0]
+            d, am, pm, same = plain_rescore(loc, sw, Tcw, scores)
             b = sw.binned
             print(f"  latch {key[0]}: first {key[1]} x {key[2]} grid at {sw.width}x{sw.height}, "
                   f"binning tiles {b.tiles_y}x{b.tiles_x}, capacity {b.capacity}, overflow "
-                  f"{b.overflow}: max |kernels - all-plain| {d}, argmax {am} vs {pm}")
+                  f"{b.overflow}, equal to the host's {same}: max |kernels - all-plain| {d}, "
+                  f"argmax {am} vs {pm}")
+            check(same, f"latch {key[0]}, {key[1]} x {key[2]} at scale {scale}: the sweep's "
+                  "binning equals the host's bit for bit")
             check(d <= SCORE_ATOL and am == pm, f"latch {key[0]}, {key[1]} x {key[2]} at scale "
                   f"{scale}: kernels agree with the all-plain run within {SCORE_ATOL}, same "
                   "argmax")
@@ -902,14 +959,14 @@ def mapping_phase(dev, smi, check, cuda_ms):
     init = session.initialize()
     sync()
     launches = dict(kernels.LAUNCHES)
-    del loc.evaluate_grid, loc.relocalize_strategy
+    del loc.evaluate_grid, loc.relocalize_strategy, loc.prepare_sweep
     n = len(grids)
     print(f"  initialization launches: {launches}, {n} grid evaluations")
     rec["init_launches"] = launches
     check(n > 0 and launches == {"joint_entropy": n, "marginal_entropy": n, "rasterize_keys": 0,
-                                 "render_gray": n},
-          "B1, B2 and render_gray launched once a grid evaluation inside the latches, B3's "
-          "keys epilogue never")
+                                 "render_gray": n, "bin_count": n, "bin_fill": n},
+          "the binning, B1, B2 and render_gray launched once a grid evaluation inside the "
+          "latches, B3's keys epilogue never")
     check(init.ok, f"the map was initialized ({init.n_matches} matches, {init.n_points} points)")
     latched = [f.Tcw.copy() for f in session.init_frames]
     rec["latches"] = []
@@ -1983,13 +2040,13 @@ def settings_phase(dev, smi, check):
             if loc is None:
                 return
             evaluate = loc.evaluate_grid
+            kept = keep_sweeps(loc)
 
             def rec_grid(frame, Tcw, kernel, scale=1):
                 scores = evaluate(frame, Tcw, kernel, scale)
                 if not first:
-                    first.update(zip(("d", "am", "pm"), plain_rescore(
-                        loc, frame, Tcw, kernel, scale, scores)[:3]),
-                        shape=scores.shape, scale=scale)
+                    first.update(zip(("d", "am", "pm", "same"), plain_rescore(
+                        loc, kept[0], Tcw, scores)), shape=scores.shape, scale=scale)
                 return scores
 
             loc.evaluate_grid = rec_grid
@@ -2021,9 +2078,11 @@ def settings_phase(dev, smi, check):
     check(all(launches[k] > 0 for k in ("render_gray", "joint_entropy", "marginal_entropy"))
           and launches["rasterize_keys"] == 0,
           "render_gray, B1 and B2 launched on the settings path, B3's keys epilogue never")
-    print(f"  first NMI sweep {first.get('shape')} at scale {first.get('scale')}: max |kernels - "
-          f"all-plain| {first.get('d')}, argmax {first.get('am')} vs {first.get('pm')}")
-    check(first and first["d"] <= SCORE_ATOL and first["am"] == first["pm"],
+    print(f"  first NMI sweep {first.get('shape')} at scale {first.get('scale')}: binning equal "
+          f"to the host's {first.get('same')}, max |kernels - all-plain| {first.get('d')}, "
+          f"argmax {first.get('am')} vs {first.get('pm')}")
+    check(first and first["same"], "the first NMI sweep's binning equals the host's bit for bit")
+    check(first["d"] <= SCORE_ATOL and first["am"] == first["pm"],
           f"the first NMI sweep within {SCORE_ATOL} of its all-plain rescore, the same argmax")
     m = re.search(r"tracked (\d+)/(\d+) frames", printed.getvalue())
     n_ok, n_run = int(m.group(1)), int(m.group(2))
@@ -2200,8 +2259,9 @@ def tools_phase(dev, smi, check, cuda_ms):
         f"the 27-candidate point splat {t['splat']['median_ms']:.3f} ms  [{smi}]")
     print(f"  launches over one sweep: {res['launches']}")
     check(res["launches"] == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                              "render_gray": 1},
-          "B1, B2 and render_gray launched once over the bench sweep, B3's keys epilogue never")
+                              "render_gray": 1, "bin_count": 0, "bin_fill": 0},
+          "B1, B2 and render_gray launched once over the bench sweep, B3's keys epilogue never "
+          "(the bench bins once, before the sweep)")
     warped = res["warped"]
     plain = _all_plain_scores(b, inp.Tcw, inp.K, inp.offsets, bench.NEAR, warped, True)
     d = (res["scores"] - plain).abs().max().item()
@@ -2601,7 +2661,8 @@ def multichip_phase(smi, check, device="cuda"):
             print(f"    {name}: launches per rank {launches}")
             if name == "nmi_mesh":
                 check(all(ln == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                                 "render_gray": 1} for ln in launches),
+                                 "render_gray": 1, "bin_count": 0, "bin_fill": 0}
+                          for ln in launches),
                       f"{name}: each rank launched B1, B2 and render_gray once for the grid")
             elif name == "nmi_splat":
                 check(all(ln["joint_entropy"] == 1 and ln["marginal_entropy"] == 1
@@ -2778,7 +2839,7 @@ def main() -> int:
     check(win > 0, f"the reference samples the entry's binning through windows (side {win})")
     err_g = render_gray_check(check, gargs, "render_gray (B3, B4/B5), windowed binning")["exact"]
     m2 = entry_mod._toy_mesh()
-    m2.texture_gray = m2.texture_gray[:128, :128]
+    m2 = dataclasses.replace(m2, texture_gray=m2.texture_gray[:128, :128])
     b2 = raster.bin_mesh(m2, np.eye(4, dtype=np.float32), K, b.height, b.width, entry_mod.NEAR,
                          entry_mod.FAR, max_offset=entry_mod.SYNTH_STEP, device=dev)
     check(texture_window(b2) == 0, "the reference samples the second binning's texture whole")
@@ -2914,9 +2975,9 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     print(f"  launches: {launches}")
     check(launches == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                       "render_gray": 1},
+                       "render_gray": 1, "bin_count": 0, "bin_fill": 0},
           "B1, B2 and render_gray (B3 with B4/B5) launched once each; B3's keys epilogue, "
-          "B3's parity surface, is not on the path")
+          "B3's parity surface, is not on the path, nor the binning (entry() bins once)")
     check(scores.shape == (S, R) and bool(torch.isfinite(scores).all()), "scores finite, [S, R]")
 
     def plain_scores(use_background):

@@ -318,6 +318,247 @@ render_gray_kernel(const float* __restrict__ tri, const float* __restrict__ pose
   raster_tile(tri, poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near, qscale, out);
 }
 
+// ---------------------------------------------------------------------------
+// The binning: the per-tile triangle lists and the [tiles, 16, capacity] slab
+// that the sweep above reads, built on the card.
+//
+// No TPU kernel stood behind it: the JAX package binned on the host in numpy
+// (orbslam2_nmi_tpu/ops/raster.py `bin_mesh`), and so does the port's plain
+// version (orbslam2_nmi_torch/ops/raster.py `bin_mesh` with a host device),
+// which these two kernels reproduce bit for bit:
+//   bin_count_kernel  one thread per face: projects its three vertices at the
+//       centre pose in float64 (the vertices are float32, converted exactly),
+//       applies the near/far cull, the per-axis margins and the screen cull
+//       with the host's formulas in the host's operation order, writes the
+//       face's tile span (origin and size; 0 x 0 when culled) and adds it to
+//       every tile it covers. The atomics' old values give the largest count
+//       and the entries past MAX_CAPACITY (the overflow, which does not
+//       depend on the capacity: capacity < MAX_CAPACITY only when no tile
+//       holds more); warp reductions give the largest span. The host reads
+//       back those four ints and sizes the slab by its own rule.
+//   bin_fill_kernel   one block per tile: walks the faces in id order twice.
+//       The host's lists come from (face, tile) pairs emitted pass by pass
+//       over the span offsets (dy, dx), faces in id order within a pass, then
+//       a stable sort by tile, so a tile's list is ordered by (dy, dx, face
+//       id). The first walk counts the tile's faces per pass and a prefix sum
+//       gives each pass its first slot; the second walk compacts each chunk's
+//       matches in id order and gives every match its pass's next slot. Slots
+//       past the capacity are dropped, as the host drops them. The block
+//       writes each kept face's slab column straight from the resident
+//       vertices, UVs and faces, and fills the empty slots as the host does
+//       (face 0's vertices and UVs, the valid row 0, id 0).
+// The projection takes the host's fused multiply-adds: numpy's float64 matrix
+// product (OpenBLAS) accumulates v0 r0, then fma(v1, r1, .), then
+// fma(v2, r2, .), and the translation after. Every other operation is one
+// IEEE operation as in numpy (-fmad=false; float64 division is correctly
+// rounded on the card).
+//
+// What bounds it. The count kernel reads each face's three vertices (~1.7 MB
+// for the 71,442-face prior) and does ~200 float64 operations a face; the
+// fill kernel's walks read the 8-byte spans once per tile twice (~310 MB from
+// L2 at 272 tiles, 960x540) and write the slab (n_tiles * 16 * capacity
+// floats, ~9 MB at capacity 512). The walks set its time; a per-tile walk
+// keeps it free of a global sort and of atomics on the lists.
+
+constexpr int kMaxCapacity = 2048;  // ops/raster.py MAX_CAPACITY
+constexpr int kCountThreads = 256;
+constexpr int kFillThreads = 512;
+constexpr int kFillWarps = kFillThreads / 32;
+constexpr int kBinParams = 21;
+
+// The pose and intrinsics of one binning, in float64 as the host computes
+struct BinParams {
+  double r[9];  // R of the centre Tcw, row-major
+  double t[3];
+  double fx, fy, cx, cy;
+  double near, far;
+  double off[3];  // |max_offset| per camera axis
+};
+
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  const long long q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int clamp_tile(long long t, int n) {
+  return (int)(t < 0 ? 0 : (t > n - 1 ? n - 1 : t));
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+bin_count_kernel(const float* __restrict__ verts, const int* __restrict__ faces, int n_faces,
+                 BinParams p, int height, int width, int tiles_y, int tiles_x,
+                 int2* __restrict__ spans, int* __restrict__ counts, int* __restrict__ record) {
+  const int f = blockIdx.x * kCountThreads + threadIdx.x;
+  int sx = 0, sy = 0, top = 0, over = 0;
+  if (f < n_faces) {
+    double u[3], v[3], z[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float* x = verts + 3 * (size_t)faces[3 * (size_t)f + k];
+      const double X = x[0], Y = x[1], Z = x[2];
+      double pc[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        pc[j] = fma(Z, p.r[3 * j + 2], fma(Y, p.r[3 * j + 1], X * p.r[3 * j])) + p.t[j];
+      z[k] = pc[2];
+      const double zs = pc[2] > 1e-6 ? pc[2] : 1e-6;
+      u[k] = p.fx * pc[0] / zs + p.cx;
+      v[k] = p.fy * pc[1] / zs + p.cy;
+    }
+    int tx_lo = 0, ty_lo = 0;
+    const double zmn = fmin(fmin(z[0], z[1]), z[2]);
+    if (zmn > p.near && zmn < p.far) {
+      const double zmin = fmax(zmn, 1e-3);
+      const double z_after = fmax(zmin - p.off[2], 0.5 * zmin);
+      const double radial = p.off[2] / z_after;
+      const double du = fmax(fmax(fabs(u[0] - p.cx), fabs(u[1] - p.cx)), fabs(u[2] - p.cx));
+      const double dv = fmax(fmax(fabs(v[0] - p.cy), fabs(v[1] - p.cy)), fabs(v[2] - p.cy));
+      const double mx = 2.0 + p.fx * p.off[0] / z_after + du * radial;
+      const double my = 2.0 + p.fy * p.off[1] / z_after + dv * radial;
+      const long long x_lo = (long long)floor(fmin(fmin(u[0], u[1]), u[2]) - mx);
+      const long long x_hi = (long long)ceil(fmax(fmax(u[0], u[1]), u[2]) + mx);
+      const long long y_lo = (long long)floor(fmin(fmin(v[0], v[1]), v[2]) - my);
+      const long long y_hi = (long long)ceil(fmax(fmax(v[0], v[1]), v[2]) + my);
+      if (x_hi >= 0 && x_lo < width && y_hi >= 0 && y_lo < height) {
+        tx_lo = clamp_tile(floor_div(x_lo, kTileW), tiles_x);
+        ty_lo = clamp_tile(floor_div(y_lo, kTileH), tiles_y);
+        sx = clamp_tile(floor_div(x_hi, kTileW), tiles_x) - tx_lo + 1;
+        sy = clamp_tile(floor_div(y_hi, kTileH), tiles_y) - ty_lo + 1;
+        for (int dy = 0; dy < sy; ++dy) {
+          for (int dx = 0; dx < sx; ++dx) {
+            const int old = atomicAdd(&counts[(ty_lo + dy) * tiles_x + tx_lo + dx], 1);
+            top = max(top, old + 1);
+            over += old >= kMaxCapacity;
+          }
+        }
+      }
+    }
+    spans[f] = make_int2(tx_lo | (ty_lo << 16), sx | (sy << 16));
+  }
+  top = (int)__reduce_max_sync(0xffffffffu, (unsigned)top);
+  sx = (int)__reduce_max_sync(0xffffffffu, (unsigned)sx);
+  sy = (int)__reduce_max_sync(0xffffffffu, (unsigned)sy);
+  over = (int)__reduce_add_sync(0xffffffffu, (unsigned)over);
+  if ((threadIdx.x & 31) == 0 && top > 0) {
+    atomicMax(&record[0], top);
+    atomicMax(&record[1], sx);
+    atomicMax(&record[2], sy);
+    if (over) atomicAdd(&record[3], over);
+  }
+}
+
+// the pass (dy * max_sx + dx) in which face span `s` reaches tile (ty, tx),
+// or -1 where it does not reach it (a culled face's span is 0 x 0)
+__device__ __forceinline__ int pass_of(int2 s, int ty, int tx, int max_sx) {
+  const int dx = tx - (s.x & 0xffff), dy = ty - (s.x >> 16);
+  return ((unsigned)dx < (unsigned)(s.y & 0xffff) && (unsigned)dy < (unsigned)(s.y >> 16))
+             ? dy * max_sx + dx
+             : -1;
+}
+
+// face f's slab column (rows x0 y0 z0 x1 y1 z1 x2 y2 z2 u0 v0 u1 v1 u2 v2
+// valid) at `col`, rows `capacity` apart
+__device__ __forceinline__ void put_face(const float* __restrict__ verts,
+                                         const float* __restrict__ uvs,
+                                         const int* __restrict__ faces, int f, float valid,
+                                         float* col, int capacity) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int i = faces[3 * (size_t)f + k];
+    col[(size_t)(3 * k) * capacity] = verts[3 * (size_t)i];
+    col[(size_t)(3 * k + 1) * capacity] = verts[3 * (size_t)i + 1];
+    col[(size_t)(3 * k + 2) * capacity] = verts[3 * (size_t)i + 2];
+    col[(size_t)(9 + 2 * k) * capacity] = uvs[2 * (size_t)i];
+    col[(size_t)(10 + 2 * k) * capacity] = uvs[2 * (size_t)i + 1];
+  }
+  col[(size_t)15 * capacity] = valid;
+}
+
+__global__ void __launch_bounds__(kFillThreads)
+bin_fill_kernel(const float* __restrict__ verts, const float* __restrict__ uvs,
+                const int* __restrict__ faces, int n_faces, const int2* __restrict__ spans,
+                int tiles_x, int max_sx, int n_passes, int capacity, float* __restrict__ tri_data,
+                int* __restrict__ tri_ids) {
+  extern __shared__ int base[];  // [n_passes]: the tile's faces per pass, then the next slots
+  __shared__ int warp_n[kFillWarps];
+  __shared__ int list_q[kFillThreads], list_f[kFillThreads];
+  __shared__ int carry;
+  const int tile = blockIdx.x, ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < n_passes; i += kFillThreads) base[i] = 0;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+
+  // walk 1: the tile's faces per pass
+  for (int c0 = 0; c0 < n_faces; c0 += kFillThreads) {
+    const int f = c0 + threadIdx.x;
+    if (f < n_faces) {
+      const int q = pass_of(spans[f], ty, tx, max_sx);
+      if (q >= 0) atomicAdd(&base[q], 1);
+    }
+  }
+  __syncthreads();
+
+  // each pass's first slot: an exclusive prefix sum, kFillThreads passes at a time
+  for (int c0 = 0; c0 < n_passes; c0 += kFillThreads) {
+    const int i = c0 + threadIdx.x;
+    const int x = i < n_passes ? base[i] : 0;
+    int s = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane == 31) warp_n[warp] = s;
+    __syncthreads();
+    int before = carry;
+    for (int w = 0; w < warp; ++w) before += warp_n[w];
+    if (i < n_passes) base[i] = before + s - x;
+    __syncthreads();
+    if (threadIdx.x == kFillThreads - 1) carry = before + s;
+    __syncthreads();
+  }
+  const int total = carry;
+
+  // walk 2: each chunk's matches in id order, each at its pass's next slot
+  float* td = tri_data + (size_t)tile * 16 * capacity;
+  int* ids = tri_ids + (size_t)tile * capacity;
+  for (int c0 = 0; c0 < n_faces; c0 += kFillThreads) {
+    const int f = c0 + threadIdx.x;
+    const int q = f < n_faces ? pass_of(spans[f], ty, tx, max_sx) : -1;
+    const int n = __syncthreads_count(q >= 0);
+    if (n == 0) continue;
+    const unsigned ballot = __ballot_sync(0xffffffffu, q >= 0);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    if (q >= 0) {
+      int at = __popc(ballot & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) at += warp_n[w];
+      list_q[at] = q;
+      list_f[at] = f;
+    }
+    __syncthreads();
+    int mine = -1;
+    if ((int)threadIdx.x < n) {
+      mine = list_q[threadIdx.x];
+      int slot = base[mine];
+      for (int j = 0; j < (int)threadIdx.x; ++j) slot += list_q[j] == mine;
+      if (slot < capacity) {
+        put_face(verts, uvs, faces, list_f[threadIdx.x], 1.0f, td + slot, capacity);
+        ids[slot] = list_f[threadIdx.x];
+      }
+    }
+    __syncthreads();  // every slot is taken before the cursors move
+    if (mine >= 0) atomicAdd(&base[mine], 1);
+  }
+
+  // the empty slots, as the host fills them
+  for (int s = min(total, capacity) + threadIdx.x; s < capacity; s += kFillThreads) {
+    put_face(verts, uvs, faces, 0, 0.0f, td + s, capacity);
+    ids[s] = 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -343,6 +584,42 @@ int nmi_render_gray(const void* tri, const void* poses, int S, int n_tiles, int 
   render_gray_kernel<<<dim3(n_tiles, S), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const float*)poses, n_tiles, capacity, tiles_x, fx, fy, cx, cy, near,
       qscale, GrayOut{(const float*)tex, tex_stride, th, tw, background, H, W, (float*)gray});
+  return (int)cudaGetLastError();
+}
+
+// verts [V, 3] f32, faces [F, 3] int32, params the kBinParams doubles of
+// BinParams on the host; spans [F] int2 (tx_lo | ty_lo << 16, sx | sy << 16),
+// counts [tiles_y * tiles_x] and record [4] (largest count, largest span in x
+// and in y, overflow) int32, both zeroed by the caller.
+int nmi_bin_count(const void* verts, const void* faces, int n_faces, const void* params,
+                  int height, int width, int tiles_y, int tiles_x, void* spans, void* counts,
+                  void* record, void* stream) {
+  BinParams p;
+  const double* v = (const double*)params;
+  static_assert(sizeof(BinParams) == kBinParams * sizeof(double), "BinParams layout");
+  for (int i = 0; i < kBinParams; ++i) reinterpret_cast<double*>(&p)[i] = v[i];
+  bin_count_kernel<<<(n_faces + kCountThreads - 1) / kCountThreads, kCountThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const float*)verts, (const int*)faces, n_faces, p, height, width, tiles_y, tiles_x,
+      (int2*)spans, (int*)counts, (int*)record);
+  return (int)cudaGetLastError();
+}
+
+// verts, faces and spans as above, uvs [V, 2] f32; n_passes = max span in y
+// times max_sx; tri_data [n_tiles, 16, capacity] f32 and tri_ids
+// [n_tiles, capacity] int32, every element written.
+int nmi_bin_fill(const void* verts, const void* uvs, const void* faces, int n_faces,
+                 const void* spans, int n_tiles, int tiles_x, int max_sx, int n_passes,
+                 int capacity, void* tri_data, void* tri_ids, void* stream) {
+  const int smem = n_passes * (int)sizeof(int);
+  if (smem > 40 * 1024) {  // with the static arrays past the 48 KB a launch gets unasked
+    const cudaError_t err = cudaFuncSetAttribute(
+        bin_fill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  bin_fill_kernel<<<n_tiles, kFillThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)verts, (const float*)uvs, (const int*)faces, n_faces, (const int2*)spans,
+      tiles_x, max_sx, n_passes, capacity, (float*)tri_data, (int*)tri_ids);
   return (int)cudaGetLastError();
 }
 

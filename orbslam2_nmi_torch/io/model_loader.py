@@ -16,13 +16,16 @@ from typing import Optional
 import numpy as np
 
 
-@dataclass
+@dataclass(frozen=True)
 class MeshModel:
     """Triangle mesh with per-vertex UVs + a grayscale texture.
 
     The renderer samples the texture and converts to grayscale with the same
     luma weights as the reference's fragment shader
     (ShadingWithTexture.fragmentshader:15: 0.299 r + 0.587 g + 0.114 b).
+    Frozen: the card keeps a mesh's arrays resident by mesh
+    (`ops/raster.resident_mesh`), so a variant is a new mesh
+    (`dataclasses.replace`), never a field assigned again.
     """
 
     vertices: np.ndarray  # [V, 3] float32, world frame

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "rasterize_keys": (_p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _p, _p, _p, _p),
     "render_gray": (_p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _p, _i, _i, _i, _f, _i, _i,
                     _p, _p),
+    "bin_count": (_p, _p, _i, _p, _i, _i, _i, _i, _p, _p, _p, _p),
+    "bin_fill": (_p, _p, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p, _p),
 }
 
 # launches per kernel since the last reset_launches()

@@ -4,11 +4,19 @@ Port of `orbslam2_nmi_tpu/ops/raster.py`, the equivalent of the reference's
 RENDER_TEXTURE mode (Thirdparty/Localization/rendering.hpp:530-630 draws the
 OBJ mesh through GLSL shaders into a GL_RED FBO). Stages:
 
-  1. **Host binning** (numpy, once per NMI relocalization, a line-for-line
-     copy of the reference): every triangle is projected at the grid-center
-     pose and binned into fixed-capacity per-screen-tile lists, with a margin
-     that covers the whole translation-candidate grid, so one binning serves
-     every candidate.
+  1. **Binning** (once per NMI sweep): every triangle is projected at the
+     grid-center pose and binned into fixed-capacity per-screen-tile lists,
+     with a margin that covers the whole translation-candidate grid, so one
+     binning serves every candidate. Two paths, chosen by the device of the
+     call, which give the same lists and slab bit for bit:
+       * on a CUDA device, kernels `bin_count` and `bin_fill`
+         (csrc/raster.cu): the projection, culls, margins and per-tile counts,
+         one readback of four ints that sizes the slab, then the lists and
+         the [tiles, 16, C] slab, read from the mesh's arrays that stay on the
+         device (`resident_mesh`, uploaded once per mesh and device);
+       * on the host (`device=None` or the CPU), numpy, a line-for-line copy
+         of the reference's host binning: the plain version, which the CPU
+         tests and the JAX parity tests use and the kernels are held against.
   2. **Kernel B3 and the sampler** (csrc/raster.cu), one block per
      (candidate, tile): re-project the tile's triangles for the candidate,
      test coverage, and keep a single-pass integer z-buffer min over packed
@@ -27,7 +35,9 @@ OBJ mesh through GLSL shaders into a GL_RED FBO). Stages:
 
 Each kernel wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors only: `render_gray_plain` is
-`rasterize_keys_plain`, then `sample_texture_plain`, then `_untile`.
+`rasterize_keys_plain`, then `sample_texture_plain`, then `_untile`. The
+binning kernels (`bin_count`, `bin_fill`) run only inside `bin_mesh` on a
+CUDA device: their plain version is `bin_mesh`'s host path.
 
 Differences vs GL, by design (as in the reference): triangles crossing the
 near plane are dropped whole rather than clipped, and shared-edge pixels may
@@ -36,6 +46,8 @@ rasterize into either neighbor (no top-left fill rule).
 
 from __future__ import annotations
 
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +56,7 @@ import torch
 from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.utils.profiling import labelled, span
+from orbslam2_nmi_torch.utils.readback import to_host
 
 TILE_H = 16
 TILE_W = 128
@@ -56,6 +69,9 @@ DEPTH_LEVELS = 1 << 20
 SENTINEL = np.int32(2**31 - 1)
 MAX_TEX_DIM = 512  # textures above this per side are box-downsampled at bin time
 _INV_UV_MAX = float(np.float32(1.0) / np.float32(UV_MAX))
+# the span offsets (dy, dx) that order a tile's list: bin_fill counts them in shared memory
+MAX_PASSES = 32768
+_MAX_TILES_AXIS = 32767  # tiles per axis that bin_count's packed spans hold
 # bin_mesh's phases
 _BIN_BUILD = span("render.bin_mesh.build")
 _BIN_SLAB = span("render.bin_mesh.slab")
@@ -113,6 +129,135 @@ def _downsample_texture(tex: np.ndarray, max_dim: int) -> np.ndarray:
     return np.pad(t, ((0, ph), (0, pw)), mode="edge"), shape
 
 
+class ResidentMesh(NamedTuple):
+    """A mesh's constant arrays on one device: what the binning kernels and
+    the render read, and what a device `BinnedMesh` points at."""
+
+    verts: torch.Tensor  # [V, 3] f32
+    uvs: torch.Tensor  # [V, 2] f32
+    faces: torch.Tensor  # [F, 3] int32
+    texture: torch.Tensor  # [Th_pad, Tw_pad] f32, as `_downsample_texture` pads it
+    tex_hw: tuple  # true (Th, Tw) before padding
+
+
+# (id(mesh), device) -> ResidentMesh; an entry is dropped when its mesh is
+# collected, so an id is never reused while its entry lives
+_RESIDENT: dict = {}
+_RESIDENT_LOCK = threading.Lock()
+
+
+def resident_mesh(mesh: MeshModel, device) -> ResidentMesh:
+    """`mesh`'s constant arrays on the CUDA `device`: checked and uploaded on
+    the first call for this (mesh, device), the same tensors on every later
+    one, kept while the mesh lives. `MeshModel` is frozen and its arrays are
+    read as immutable, as every caller treats them. Raises on a device that
+    is not CUDA, and on arrays that no binning can read: faces not [F, 3]
+    with F > 0, or indexing past the vertices; vertices not [V, 3]; UVs not
+    [V, 2]. The checks come before anything touches the device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the mesh stays resident on a CUDA device, got {device}")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (id(mesh), device)
+    with _RESIDENT_LOCK:
+        res = _RESIDENT.get(key)
+        if res is None:
+            verts = np.asarray(mesh.vertices, np.float32)
+            uvs = np.asarray(mesh.uvs, np.float32)
+            faces = np.asarray(mesh.faces)
+            if faces.ndim != 2 or faces.shape[1] != 3 or len(faces) == 0:
+                raise ValueError(f"faces must be [F, 3] with F > 0, got {faces.shape}")
+            if verts.ndim != 2 or verts.shape[1] != 3 or uvs.shape != (len(verts), 2):
+                raise ValueError(f"vertices {verts.shape} and uvs {uvs.shape} must be "
+                                 "[V, 3] and [V, 2]")
+            if faces.min() < 0 or faces.max() >= len(verts):
+                raise ValueError(f"faces index vertices {faces.min()}..{faces.max()}, "
+                                 f"outside 0..{len(verts) - 1}")
+            tex_pad, tex_hw = _downsample_texture(mesh.texture_gray, MAX_TEX_DIM)
+            res = ResidentMesh(
+                *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (verts, uvs, faces.astype(np.int32), tex_pad)),
+                tex_hw=tex_hw,
+            )
+            _RESIDENT[key] = res
+            weakref.finalize(mesh, _RESIDENT.pop, key, None)
+    return res
+
+
+def _bin_params(Tcw_center, K, near, far, max_offset) -> np.ndarray:
+    """bin_count's 21 float64 parameters: R row-major, t, fx, fy, cx, cy,
+    near, far and |max_offset| per camera axis."""
+    T = np.asarray(Tcw_center, np.float64)
+    K = np.asarray(K, np.float64)
+    off = np.broadcast_to(np.abs(np.asarray(max_offset, np.float64)), (3,))
+    return np.concatenate([T[:3, :3].ravel(), T[:3, 3], [K[0, 0], K[1, 1], K[0, 2], K[1, 2]],
+                           [float(near), float(far)], off])
+
+
+def _bin_count(res: ResidentMesh, params: np.ndarray, height: int, width: int, tiles_y: int,
+               tiles_x: int):
+    """Kernel `bin_count`: each face's tile span at the pose and intrinsics
+    of `params` (`_bin_params`), counted into per-tile counts on the device.
+    Returns (spans [F, 2] int32, (largest count, largest span in x, largest
+    span in y, overflow)), the second read back to the host by `to_host`,
+    whose wait releases the interpreter lock: on the async NMI worker it
+    waits behind the tracking thread's queued step."""
+    dev = res.verts.device
+    spans = torch.empty((len(res.faces), 2), dtype=torch.int32, device=dev)
+    buf = torch.zeros(tiles_y * tiles_x + 4, dtype=torch.int32, device=dev)
+    counts, record = buf[:-4], buf[-4:]
+    kernels.launch("bin_count", dev, res.verts.data_ptr(), res.faces.data_ptr(), len(res.faces),
+                   params.ctypes.data, height, width, tiles_y, tiles_x, spans.data_ptr(),
+                   counts.data_ptr(), record.data_ptr())
+    return spans, tuple(int(x) for x in to_host(record))
+
+
+def _bin_fill(res: ResidentMesh, spans: torch.Tensor, tiles_y: int, tiles_x: int, max_sx: int,
+              max_sy: int, capacity: int):
+    """Kernel `bin_fill`: (tri_data [n_tiles, 16, capacity] f32, tri_ids
+    [n_tiles, capacity] int32), each tile's list in the host's order, from
+    `_bin_count`'s spans and largest spans. Raises when the spans need more
+    (dy, dx) passes than the kernel counts in shared memory."""
+    n_passes = max(max_sx, 1) * max(max_sy, 1)
+    if n_passes > MAX_PASSES:
+        raise ValueError(f"spans up to {max_sy}x{max_sx} tiles take {n_passes} passes, more "
+                         f"than {MAX_PASSES}")
+    dev = res.verts.device
+    n_tiles = tiles_y * tiles_x
+    tri_data = torch.empty((n_tiles, 16, capacity), dtype=torch.float32, device=dev)
+    tri_ids = torch.empty((n_tiles, capacity), dtype=torch.int32, device=dev)
+    kernels.launch("bin_fill", dev, res.verts.data_ptr(), res.uvs.data_ptr(),
+                   res.faces.data_ptr(), len(res.faces), spans.data_ptr(), n_tiles, tiles_x,
+                   max(max_sx, 1), n_passes, capacity, tri_data.data_ptr(), tri_ids.data_ptr())
+    return tri_data, tri_ids
+
+
+def _bin_mesh_cuda(mesh, Tcw_center, K, height, width, near, far, max_offset,
+                   device) -> BinnedMesh:
+    """`bin_mesh` on a CUDA device: the kernels, from the resident arrays.
+    Raises on an image with no tiles, or with more per axis than
+    `bin_count`'s packed spans hold."""
+    tiles_y = _pad_up(height, TILE_H) // TILE_H
+    tiles_x = _pad_up(width, TILE_W) // TILE_W
+    if height <= 0 or width <= 0 or max(tiles_y, tiles_x) > _MAX_TILES_AXIS:
+        raise ValueError(f"a {height}x{width} image must have 1 to {_MAX_TILES_AXIS} tiles "
+                         "per axis")
+    with _BIN_UPLOAD():
+        res = resident_mesh(mesh, device)
+        params = _bin_params(Tcw_center, K, near, far, max_offset)
+    with _BIN_BUILD():
+        spans, (top, max_sx, max_sy, overflow) = _bin_count(res, params, height, width, tiles_y,
+                                                            tiles_x)
+        capacity = min(_pad_up(max(top, 1), 128), MAX_CAPACITY)
+    with _BIN_SLAB():
+        tri_data, tri_ids = _bin_fill(res, spans, tiles_y, tiles_x, max_sx, max_sy, capacity)
+    return BinnedMesh(tri_data=tri_data, tri_ids=tri_ids, verts=res.verts, uvs=res.uvs,
+                      faces=res.faces, texture=res.texture, tex_hw=res.tex_hw, tiles_y=tiles_y,
+                      tiles_x=tiles_x, height=height, width=width, capacity=capacity,
+                      overflow=overflow)
+
+
 @labelled("render.bin_mesh")
 def bin_mesh(
     mesh: MeshModel,
@@ -125,7 +270,7 @@ def bin_mesh(
     max_offset=0.0,
     device: str | torch.device | None = "cuda",
 ) -> BinnedMesh:
-    """Bin triangles into screen tiles at the grid-center pose (host, numpy).
+    """Bin triangles into screen tiles at the grid-center pose.
 
     `max_offset` is the largest translation-candidate offset per CAMERA AXIS
     (scalar = same bound for all three); each triangle's bounding box is
@@ -134,12 +279,26 @@ def bin_mesh(
     per-axis and position-dependent: x/y offsets shift by ~f*off/z while a z
     offset scales radially by |u - c|*oz/(z - oz).
 
-    The arrays are uploaded to `device`; `device=None` keeps them in numpy.
-    Its host time splits into three ranges: `render.bin_mesh.build` (the
-    projection, the culls and margins, the (face, tile) pairs, their sort and
-    slots), `render.bin_mesh.slab` (the [tiles, 16, C] slab and the texture's
-    downsample and pad) and `render.bin_mesh.upload`.
+    The device of the call chooses the path; both give the same lists, slab,
+    capacity and overflow:
+      * a CUDA `device`: kernels `bin_count` and `bin_fill` on the card,
+        from the mesh's resident arrays (`resident_mesh`), which the result's
+        `verts`, `uvs`, `faces` and `texture` are. Its ranges:
+        `render.bin_mesh.upload` (the resident arrays, uploaded on the first
+        call for the mesh and device, and the pose and intrinsics packed as
+        the kernel's parameters), `render.bin_mesh.build` (`bin_count` and
+        the readback of its four ints) and `render.bin_mesh.slab`
+        (`bin_fill`).
+      * `device=None` or any other device: numpy on the host, a copy of the
+        reference's binning; `None` keeps the arrays in numpy, another device
+        gets them uploaded. Its ranges: `render.bin_mesh.build` (the
+        projection, the culls and margins, the (face, tile) pairs, their sort
+        and slots), `render.bin_mesh.slab` (the [tiles, 16, C] slab and the
+        texture's downsample and pad) and `render.bin_mesh.upload`.
     """
+    if device is not None and torch.device(device).type == "cuda":
+        return _bin_mesh_cuda(mesh, Tcw_center, K, height, width, near, far, max_offset,
+                              torch.device(device))
     with _BIN_BUILD():
         Tcw_center = np.asarray(Tcw_center, np.float64)
         K = np.asarray(K, np.float64)

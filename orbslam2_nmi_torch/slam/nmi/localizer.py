@@ -25,7 +25,11 @@ Where it differs from the JAX localizer, on purpose:
     always goes through `raster.bin_mesh` (once per `evaluate_grid`, with the
     margin of the grid's largest offset per axis) and `raster.render_mesh_grid`
     (`render_gray`, kernel B3 with the sampler fused, on the card, its plain
-    version on the CPU), so there is no `force_mesh_raster`. A point model (render mode 4)
+    version on the CPU), so there is no `force_mesh_raster`. On the card the
+    binning is kernels `bin_count` and `bin_fill`, which read the mesh's
+    arrays resident on the device: the constructor uploads them once (set-up
+    counter `nmi.mesh_upload`), so a sweep uploads nothing of the mesh. On
+    the CPU it is the host's numpy binning. A point model (render mode 4)
     goes through `render.render_translation_grid`.
   * **One byte a level.** `cfg.n_bins` goes to `nmi_scores`, which packs
     the gray levels in one byte: more than 256 bins score as 256, which is
@@ -33,8 +37,11 @@ Where it differs from the JAX localizer, on purpose:
 
 Tracing (`utils/profiling`): a relocalization runs inside `nmi.relocalize`,
 each sweep inside `nmi.sweep`, and the readback of its scores inside
-`nmi.readback` (on the async NMI worker that readback holds the interpreter
-lock while the device finishes).
+`nmi.readback`. Both readbacks of a sweep (the binning's four ints and the
+scores) go through `utils/readback.to_host`, whose wait releases the
+interpreter lock: on the async NMI worker they wait behind the tracking
+thread's queued step on the shared stream, and the tracking thread runs on
+meanwhile.
 
 Sign conventions: translation candidates move the camera center along its own
 axes, offset_cam = (i - (n-1)/2) * step per axis (x right, y down, z forward);
@@ -44,6 +51,7 @@ rotation candidates compose camera-frame R = Rz Ry Rx on the right of Twc.
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -56,6 +64,7 @@ from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.ops import histogram_nmi, homography, raster, render
 from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
+from orbslam2_nmi_torch.utils import profiling
 from orbslam2_nmi_torch.utils.profiling import labelled, span
 from orbslam2_nmi_torch.utils.readback import to_host
 
@@ -149,6 +158,11 @@ class NMILocalizer:
         # search_scale (the re-init latch's widening)
         self.search_scale = 1.0
         self.mesh = mesh
+        if mesh is not None and self.device.type == "cuda":
+            t0 = time.perf_counter()
+            raster.resident_mesh(mesh, self.device)
+            torch.cuda.synchronize(self.device)
+            profiling.record_setup("nmi.mesh_upload", time.perf_counter() - t0)
         self.model = (None if model is None
                       else render.RenderModel(*(t.to(self.device) for t in model)))
         self.log = log_fn or (lambda s: None)
@@ -187,7 +201,7 @@ class NMILocalizer:
         sweep = self.prepare_sweep(frame_gray, Tcw, kernel, scale)
         scores = self.score_sweep(self.render_sweep(sweep), self.warp_sweep(sweep))
         with _READBACK():
-            return scores.cpu().numpy()
+            return to_host(scores)
 
     # The stages of one `evaluate_grid`, callable alone so that a grid can be
     # timed stage by stage or re-scored against other versions of its kernels.
@@ -198,7 +212,8 @@ class NMILocalizer:
         scale: int = 1,
     ) -> Sweep:
         """The host stage: the frame and intrinsics at `scale`, the candidate
-        grid, and for a mesh its binning (numpy, then uploaded)."""
+        grid, and for a mesh its binning (on the card by kernels, from the
+        resident mesh; on the CPU in numpy)."""
         offsets_host = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
                                                        device="cpu")
         angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,

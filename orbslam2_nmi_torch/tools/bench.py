@@ -138,7 +138,7 @@ class SweepInputs:
 
 def sweep_inputs(device="cuda", height: int = HEIGHT, width: int = WIDTH,
                  grid=GRID) -> SweepInputs:
-    """The bench's scene on `device`, binned (on the host, untimed)."""
+    """The bench's scene on `device`, binned (untimed)."""
     device = kernels.resolve_device(device, "bench")
     pts, gray, mesh, frame = bench_scene(height, width)
     K = bench_K(height, width)

@@ -8,7 +8,7 @@ builds `entry.localizer_entry()` at 960x540, warms up, and profiles three
 calls of `evaluate_grid` on the initialization grid (125 renders x 27 warps,
 one translation step off). It prints the device time summed by kernel name
 (the largest first), the device's busy time against the wall time of the
-same sweeps run without the profiler (and so its idle share: host binning,
+same sweeps run without the profiler (and so its idle share: the binning's host side,
 Python and launch gaps, the readback; the profiled window's share, which
 tracing inflates, is printed beside it),
 and the card's `nvidia-smi` line beside them. It refuses to run without
