@@ -1,6 +1,8 @@
-"""Host ms a sweep in the last phase of `raster.bin_mesh` (the upload of the
-binned mesh to the device, `raster.to_device`), from its
-`render.bin_mesh.upload` ranges."""
+"""Host ms a sweep in one phase of `raster.bin_mesh`, from its
+`render.bin_mesh.upload` ranges: on the card, the lookup of the mesh's
+arrays resident on the device (`raster.resident_mesh`; uploaded once, in
+the localizer's set-up) and the pose and intrinsics packed as `bin_count`'s
+parameters; on the CPU, the upload of the host's binned mesh."""
 
 
 def read(ctx):

@@ -6,10 +6,11 @@ rounded to float32 only where it is handed on as the program hands it on
 (a sweep's centre pose), so the reference's poses differ from a sound
 float32 program's by rounding alone.
 
-The warp's homographies alone keep the program's float32 rounding order
-(`mm_fma`, `so3_exp_f32`, frozen copies of `orbslam2_nmi_torch/geometry/
-se3.py`'s): each fused step a float64 product and sum rounded once to
-float32. Why, in `warp.py`.
+The warp's homographies and the splat's camera-frame coordinates alone
+keep the program's float32 rounding order (`mm_fma`, `mv_fma`,
+`so3_exp_f32`, frozen copies of `orbslam2_nmi_torch/geometry/se3.py`'s):
+each fused step a float64 product and sum rounded once to float32. Why, in
+`warp.py` and `splat.py`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ def _fma_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mm_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _fma_dot(a[..., :, None, :], b.transpose(-1, -2)[..., None, :, :])
+
+
+def mv_fma(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _fma_dot(a, v[..., None, :])
 
 
 def so3_exp_f32(w: torch.Tensor) -> torch.Tensor:

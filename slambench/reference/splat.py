@@ -3,8 +3,20 @@
 Frozen copies of the program's splat arithmetic (`orbslam2_nmi_torch/ops/
 render.py`: `_min_pool`, `_splat`, `render_translation_grid`): each point's
 quantized depth and gray packed into one int32 key, one scatter-min a
-candidate's image, then a point_size x point_size min-pool. The points'
-camera-frame coordinates and their projections are float64. Plain PyTorch.
+candidate's image, then a point_size x point_size min-pool. Plain PyTorch.
+
+The points' camera-frame coordinates keep the program's float32 rounding
+order (`geometry.mv_fma`, then the candidate's translation added in
+float32), and the projection, the depth's quantization and the keys are
+float32, as the program's are. A splat has no tolerance to round off: a
+point's pixel is a rounded projection and its depth a truncated one, so a
+coordinate one ulp off moves a point across a pixel or a depth level, and
+the point that wins a pixel's scatter-min changes, with its gray. On the
+CPU, the benchmark's terrain sampled at 400 points/m² (2,184,253 points) and
+rendered at 960x540, 3 candidates 0.2 m apart along x at each of circuit
+frames 40, 100, 260 and 400: projected in float64, the renders differ from
+the program's at 6-22 pixels a frame, by up to 60-166 gray levels; the
+float32 copy differs at none (PERF.md section 2).
 """
 
 from __future__ import annotations
@@ -13,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slambench.reference.geometry import mv_fma
 
 _BIG = 2**30
 _DEPTH_LEVELS = 2**22
@@ -84,17 +97,21 @@ def render_translation_grid(
     near: float,
     far: float,
     point_size: int = 3,
+    round_to: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Render every translation candidate: [S, H, W] float32, one scatter over
-    all S x P points."""
+    all S x P points. `round_to` (the control) rounds the camera-frame
+    coordinates to that type before they are projected."""
     dev = model.points.device
     Tcw = torch.as_tensor(Tcw, dtype=torch.float32, device=dev)
     offsets_cam = torch.as_tensor(offsets_cam, dtype=torch.float32, device=dev)
-    # the camera-frame coordinates in float64, each [S, P]
-    rotated = (Tcw[:3, :3].double() @ model.points.double().T)  # [3, P]
-    t_all = Tcw[:3, 3].double()[None, :] - offsets_cam.double()  # [S, 3]
-    x, y, z = (rotated[i][None, :] + t_all[:, i:i + 1] for i in range(3))
-    return _splat(x, y, z, model.gray, K, height, width, near, far, point_size, 0.0)
+    # the camera-frame coordinates in the program's float32 order, each [S, P]
+    rotated = mv_fma(Tcw[:3, :3], model.points).T  # [3, P]
+    t_all = Tcw[:3, 3][None, :] - offsets_cam  # [S, 3]
+    xyz = [rotated[i][None, :] + t_all[:, i:i + 1] for i in range(3)]
+    if round_to is not None:
+        xyz = [c.to(round_to).to(torch.float32) for c in xyz]
+    return _splat(*xyz, model.gray, K, height, width, near, far, point_size, 0.0)
 
 
 def translation_grid_offsets(

@@ -12,8 +12,11 @@ and accepted against the distance-relaxed threshold.
 The poses are float64 (`geometry.py`); a sweep's centre pose is handed on
 in float32, as the program hands it on.
 `precision="bfloat16"` is the control, one precision below the float32 the
-configuration states: the homographies, every render and warp, and each
-pose the search hands on are rounded to bfloat16.
+configuration states: the homographies, the splat's camera-frame
+coordinates, every render and warp, and each pose the search hands on are
+rounded to bfloat16. Grays 0-255 are exact in bfloat16, so a splat's render
+rounded after it is made would be the float32 render; its coordinates,
+rounded before they are projected, are the precision the control stands for.
 """
 
 from __future__ import annotations
@@ -132,6 +135,7 @@ class Reference:
             K[:2] /= scale
             frame = box_pool(frame, scale)
         T = torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device)
+        low = self.precision == "bfloat16"
         if self.mesh is not None:
             binned = raster.bin_mesh(self.mesh, np.asarray(Tcw), K, h, w, cfg["render_near"],
                                      cfg["render_far"],
@@ -142,8 +146,8 @@ class Reference:
             point_size = max(1, int(round(cfg["render_point_size"] / scale)))
             renders = splat.render_translation_grid(self.model, T, K, offsets.to(self.device), h,
                                                     w, cfg["render_near"], cfg["render_far"],
-                                                    point_size=point_size)
-        low = self.precision == "bfloat16"
+                                                    point_size=point_size,
+                                                    round_to=torch.bfloat16 if low else None)
         warps = warp.warp_rotation_grid(frame, K, angles, round_to=torch.bfloat16 if low else None)
         if low:
             renders = renders.to(torch.bfloat16).to(torch.float32)

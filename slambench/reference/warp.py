@@ -6,7 +6,7 @@ reference system's rule between the separable two-pass warp (shift bound
 at most 64 px) and the exact bilinear inverse warp. Plain PyTorch.
 
 The homographies keep the program's float32 rounding order
-(`geometry.mm_fma`), the one place where the reference does: the grid's
+(`geometry.mm_fma`), as the splat's coordinates do (`splat.py`): the grid's
 centre, the identity rotation, warps an integer frame onto integer grays,
 and a float32 identity homography moves every source by up to an ulp of the
 principal point (3.05e-5 px at 960x540), which puts column 0 outside and

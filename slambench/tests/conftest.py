@@ -15,7 +15,19 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = {"mesh-reloc": "zumav_mesh"}
+from slambench import run  # noqa: E402
+
+
+def _reloc_cells() -> dict:
+    """Every cell of `BENCHMARK.json` whose traffic's kind is `reloc`, mapped
+    to its configuration's name: a cell added by files alone gets the CPU
+    tests of its program, control and faults."""
+    bench = run.load_benchmark()
+    return {w["name"]: w["config"] for w in bench["workloads"]
+            if run.find_cell(bench, w["name"])[2]["kind"] == "reloc"}
+
+
+CELLS = _reloc_cells()
 
 
 def pytest_configure(config):
