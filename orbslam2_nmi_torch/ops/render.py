@@ -30,10 +30,14 @@ import torch.nn.functional as F
 
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel, PointCloudModel
-from orbslam2_nmi_torch.utils.profiling import labelled
+from orbslam2_nmi_torch.utils.profiling import labelled, span
 
 _BIG = 2**30  # empty pixel (and masked point) key
 _DEPTH_LEVELS = 2**22
+
+_SPLAT_PROJECT = span("render.splat.project")
+_SPLAT_SCATTER = span("render.splat.scatter")
+_SPLAT_RESOLVE = span("render.splat.resolve")
 
 
 class RenderModel(NamedTuple):
@@ -117,32 +121,38 @@ def _splat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, gray: torch.Tensor
            height: int, width: int, near: float, far: float, point_size: int,
            background: float) -> torch.Tensor:
     """Render S sets of camera-frame points (coordinates x, y, z [S, P], gray
-    [P]) into [S, H, W] f32."""
+    [P]) into [S, H, W] f32, in three phases, each a span: the projection to
+    pixel indices and keys, the scatter-min into the key buffer, and the
+    min-pool and gray."""
     S = z.shape[0]
     dev = z.device
-    K_host = np.asarray(K.cpu() if isinstance(K, torch.Tensor) else K, np.float32)
-    fx, fy, cx, cy = (torch.tensor(K_host[i, j], device=dev)
-                      for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
-    z_safe = torch.where(z > 1e-6, z, torch.tensor(1e-6, device=dev))
-    u = fx * x / z_safe + cx
-    v = fy * y / z_safe + cy
-    ui = torch.round(u).to(torch.int32)
-    vi = torch.round(v).to(torch.int32)
-    ok = (z > near) & (z < far) & (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
-    # the reference's compiled (z - near) / (far - near): times the f32 reciprocal
-    inv_range = torch.tensor(np.float32(1.0) / np.float32(far - near), device=dev)
-    zq = torch.clamp(((z - near) * inv_range * _DEPTH_LEVELS).to(torch.int32), 0, _DEPTH_LEVELS - 1)
-    g8 = torch.clamp(gray, 0, 255).to(torch.int32)
-    key = torch.where(ok, zq * 256 + g8, _BIG)
-    # masked points write the empty key to their render's pixel 0, which
-    # leaves it as it was
-    base = torch.arange(S, device=dev, dtype=torch.int64)[:, None] * (height * width)
-    pix = torch.where(ok, vi.to(torch.int64) * width + ui, 0) + base
-    buf = torch.full((S * height * width,), _BIG, dtype=torch.int32, device=dev)
-    buf.scatter_reduce_(0, pix.reshape(-1), key.reshape(-1), "amin", include_self=True)
-    img_key = _min_pool(buf.reshape(S, height, width), point_size)
-    return torch.where(img_key < _BIG, (img_key % 256).to(torch.float32),
-                       torch.tensor(background, dtype=torch.float32, device=dev))
+    with _SPLAT_PROJECT():
+        K_host = np.asarray(K.cpu() if isinstance(K, torch.Tensor) else K, np.float32)
+        fx, fy, cx, cy = (torch.tensor(K_host[i, j], device=dev)
+                          for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+        z_safe = torch.where(z > 1e-6, z, torch.tensor(1e-6, device=dev))
+        u = fx * x / z_safe + cx
+        v = fy * y / z_safe + cy
+        ui = torch.round(u).to(torch.int32)
+        vi = torch.round(v).to(torch.int32)
+        ok = (z > near) & (z < far) & (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
+        # the reference's compiled (z - near) / (far - near): times the f32 reciprocal
+        inv_range = torch.tensor(np.float32(1.0) / np.float32(far - near), device=dev)
+        zq = torch.clamp(((z - near) * inv_range * _DEPTH_LEVELS).to(torch.int32), 0,
+                         _DEPTH_LEVELS - 1)
+        g8 = torch.clamp(gray, 0, 255).to(torch.int32)
+        key = torch.where(ok, zq * 256 + g8, _BIG)
+        # masked points write the empty key to their render's pixel 0, which
+        # leaves it as it was
+        base = torch.arange(S, device=dev, dtype=torch.int64)[:, None] * (height * width)
+        pix = torch.where(ok, vi.to(torch.int64) * width + ui, 0) + base
+    with _SPLAT_SCATTER():
+        buf = torch.full((S * height * width,), _BIG, dtype=torch.int32, device=dev)
+        buf.scatter_reduce_(0, pix.reshape(-1), key.reshape(-1), "amin", include_self=True)
+    with _SPLAT_RESOLVE():
+        img_key = _min_pool(buf.reshape(S, height, width), point_size)
+        return torch.where(img_key < _BIG, (img_key % 256).to(torch.float32),
+                           torch.tensor(background, dtype=torch.float32, device=dev))
 
 
 @labelled("render_pointcloud")

@@ -30,7 +30,8 @@ Where it differs from the JAX localizer, on purpose:
     arrays resident on the device: the constructor uploads them once (set-up
     counter `nmi.mesh_upload`), so a sweep uploads nothing of the mesh. On
     the CPU it is the host's numpy binning. A point model (render mode 4)
-    goes through `render.render_translation_grid`.
+    goes through `render.render_translation_grid`; on the card the
+    constructor places it on the device (set-up counter `nmi.cloud_upload`).
   * **One byte a level.** `cfg.n_bins` goes to `nmi_scores`, which packs
     the gray levels in one byte: more than 256 bins score as 256, which is
     the reference's result on frames and renders in [0, 255].
@@ -163,8 +164,13 @@ class NMILocalizer:
             raster.resident_mesh(mesh, self.device)
             torch.cuda.synchronize(self.device)
             profiling.record_setup("nmi.mesh_upload", time.perf_counter() - t0)
-        self.model = (None if model is None
-                      else render.RenderModel(*(t.to(self.device) for t in model)))
+        self.model = None
+        if model is not None:
+            t0 = time.perf_counter()
+            self.model = render.RenderModel(*(t.to(self.device) for t in model))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+                profiling.record_setup("nmi.cloud_upload", time.perf_counter() - t0)
         self.log = log_fn or (lambda s: None)
         # when set, relocalize_once saves the best and the middle cell's
         # overlay images here (the reference's orb_prop_log imagery,

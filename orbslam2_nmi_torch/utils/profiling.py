@@ -13,7 +13,7 @@ ranges by the reference's module-name rules.
 
 Set-up steps that a process runs once (the kernel library's build or load,
 the vocabulary's load, the graph capture, the NMI init latches, the NMI
-localizer's mesh upload) record their seconds in `SETUP`. Per-frame and per-keyframe counters go into the records
+localizer's mesh or point-cloud upload) record their seconds in `SETUP`. Per-frame and per-keyframe counters go into the records
 the front-end and the mapper keep (`PipelinedFrontend.records`,
 `LocalMapper.records`), which hold the newest entries only (`Newest`); a
 timestamp meant to be laid on a profile is taken with `clock_ns`.

@@ -54,7 +54,8 @@ EXPECTED = {
     "fuse_match_batch": "matching", "triangulate_and_gate_batch": "local_mapping",
     "pnp_ransac": "relocalization", "vocab_quantize": "place_recognition",
     "render.bin_mesh.build": "nmi_render", "render.bin_mesh.slab": "nmi_render",
-    "render.bin_mesh.upload": "nmi_render",
+    "render.bin_mesh.upload": "nmi_render", "render.splat.project": "nmi_render",
+    "render.splat.scatter": "nmi_render", "render.splat.resolve": "nmi_render",
     "nmi.relocalize": "other", "nmi.sweep": "other", "nmi.readback": "other",
     "frontend.dispatch": "other", "frontend.map_lock": "other", "frontend.candidates": "other",
     "frontend.readback_wait": "other", "frontend.process": "other",

@@ -2,9 +2,11 @@
 counters and the set-up counters, on the CPU.
 
   * each range opens under its parent in a CPU profile (the relocalization's
-    sweeps and readbacks, the binning's three phases, the front-end's
-    phases, the mapping worker's keyframes), and none opens while no
-    profiler runs;
+    sweeps and readbacks, the binning's three phases, the point splat's
+    three phases, the front-end's phases, the mapping worker's keyframes),
+    and none opens while no profiler runs;
+  * a traced point-model relocalization renders what an untraced one does,
+    bit for bit;
   * at 240x135 the binning's three phases cover at least 95 % of its range's
     host time;
   * a small `PipelinedFrontend` run (the end-to-end scene: 320x240, 25
@@ -12,7 +14,8 @@ counters and the set-up counters, on the CPU.
     fills each frame's backpressure wait, keyframe and step times, and its
     times on the profiler's clock lie within 5 ms of the frame's ranges;
     the mapping worker's records carry their queue wait;
-  * the set-up counters keep the first reading of a process;
+  * the set-up counters keep the first reading of a process; the point
+    model's upload is one of them on the card only;
   * the records keep the newest frames and keyframes only.
 """
 
@@ -24,13 +27,13 @@ import types
 import numpy as np
 import pytest
 import torch
-from torch_port_fixtures import (MESH_CAMERA, e2e_config, e2e_frames, height_field_mesh,
-                                 mesh_frame)
+from torch_port_fixtures import (MESH_CAMERA, cuda_device, e2e_config, e2e_frames,  # noqa: F401
+                                 height_field_mesh, make_world, mesh_frame)
 
 from orbslam2_nmi_torch.config import CameraConfig, NMIConfig, NMIGridConfig
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld
-from orbslam2_nmi_torch.ops import raster
+from orbslam2_nmi_torch.ops import raster, render
 from orbslam2_nmi_torch.slam import frontend_pipelined as fp
 from orbslam2_nmi_torch.slam import local_mapping
 from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
@@ -59,6 +62,27 @@ def small_relocalization():
     T = np.eye(4, dtype=np.float32)
     T[0, 3] = 0.3
     return loc, mesh_frame(mesh), T
+
+
+CLOUD_CAMERA = dict(fx=60.0, fy=60.0, cx=40.0, cy=30.0, width=80, height=60)
+SPLAT_PHASES = ("render.splat.project", "render.splat.scatter", "render.splat.resolve")
+
+
+def small_cloud_relocalization(device="cpu"):
+    """(localizer, frame, prior): the point world's splat at I and a prior
+    0.3 m off, on a 3 x 1 grid at 80x60, two iterations."""
+    pts, gray = make_world(20000, seed=7)
+    model = render.RenderModel(torch.from_numpy(pts), torch.from_numpy(gray))
+    cfg = NMIConfig(grid=NMIGridConfig(synth_num=(3, 1, 1), warp_num=(1, 1, 1),
+                                       synth_step=(0.4, 0.4, 0.4), warp_step=(0.03,) * 3),
+                    render_near=1.0, render_far=30.0, threshold=0.05, max_iteration_count=2)
+    cam = CameraConfig(**CLOUD_CAMERA)
+    loc = NMILocalizer(cfg, cam, model, device=device)
+    frame = render.render_pointcloud(loc.model, torch.eye(4), cam.K, cam.height, cam.width,
+                                     1.0, 30.0, 3)
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = 0.3
+    return loc, frame, T
 
 
 def ranges(prof, names) -> dict:
@@ -226,6 +250,42 @@ def test_relocalization_ranges_nest_under_their_parents():
                                             "render.bin_mesh.slab", "render.bin_mesh.upload"))
 
 
+def _kept_renders(loc) -> list:
+    """The renders of every sweep `loc` makes from now on, kept on the host."""
+    kept, render_sweep = [], loc.render_sweep
+
+    def keep(sweep):
+        out = render_sweep(sweep)
+        kept.append(out.cpu().clone())
+        return out
+
+    loc.render_sweep = keep
+    return kept
+
+
+def test_splat_ranges_nest_under_the_grid_render():
+    """A point-model relocalization opens the splat's three phases once a
+    sweep, inside its `render_translation_grid`, and renders what the same
+    relocalization renders untraced, bit for bit."""
+    loc, frame, T = small_cloud_relocalization()
+    plain = _kept_renders(loc)
+    want = loc.relocalize_strategy(frame, T)
+    loc, frame, T = small_cloud_relocalization()
+    traced = _kept_renders(loc)
+    with tdb.traced("cpu") as prof:
+        got = loc.relocalize_strategy(frame, T)
+    assert got.iterations == want.iterations == 2
+    np.testing.assert_array_equal(got.Tcw, want.Tcw)
+    assert len(traced) == len(plain) >= 2
+    assert all(torch.equal(a, b) for a, b in zip(traced, plain))
+    found = ranges(prof, profiling.NAMES)
+    assert_nested(found, {"render_translation_grid": ("nmi.sweep",),
+                          **{k: ("render_translation_grid",) for k in SPLAT_PHASES}})
+    n = len(found["nmi.sweep"])
+    assert n == len(plain) and len(found["render_translation_grid"]) == n
+    assert all(len(found[k]) == n for k in SPLAT_PHASES)
+
+
 def test_bin_mesh_phases_cover_its_host_time():
     """The 71,442-face terrain binned at 240x135: the three phases hold at
     least 95 % of the `render.bin_mesh` range's host time."""
@@ -305,3 +365,22 @@ def test_setup_counters_keep_the_first_reading(tmp_path, monkeypatch):
     assert set(profiling.SETUP) == {"vocabulary.load", "nmi.init_latch.1", "nmi.init_latch.2"}
     assert profiling.SETUP["nmi.init_latch.1"][0] >= 0.01
     assert profiling.SETUP["nmi.init_latch.1"][1] < profiling.SETUP["nmi.init_latch.2"][1]
+
+
+def test_cloud_upload_is_no_setup_step_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(profiling, "SETUP", {})
+    small_cloud_relocalization()
+    assert "nmi.cloud_upload" not in profiling.SETUP
+
+
+@pytest.mark.gpu
+def test_cloud_upload_is_recorded_once_on_the_card(cuda_device, monkeypatch):
+    """The localizer places a point model on the card in its set-up, and the
+    counter keeps the first of two localizers' readings."""
+    monkeypatch.setattr(profiling, "SETUP", {})
+    loc, _, _ = small_cloud_relocalization(cuda_device)
+    assert loc.model.points.device.type == "cuda"
+    first = profiling.SETUP["nmi.cloud_upload"]
+    small_cloud_relocalization(cuda_device)
+    assert profiling.SETUP["nmi.cloud_upload"] == first and first[0] > 0.0
+    assert "nmi.mesh_upload" not in profiling.SETUP
