@@ -33,9 +33,15 @@ Run from the root of a checkout. It
      that each kernel launched once a grid evaluation in each case; times
      each case and splits one sweep of (a) into the localizer's stages (host
      binning, render, warp, score) and the readback;
-  6. drives the localizer on the mesh's point sampling (render mode 4, the
-     point splat), case (a), where only B1 and B2 may launch, with the same
-     all-plain checks;
+  6. holds the point splat's kernels (`splat_scatter`, `splat_resolve`)
+     against the plain torch splat bit for bit at the deployment's shapes
+     (27 candidates of the 2,184,253-point terrain cloud at 960x540, point
+     size 3), the key buffer and the images, and times both beside their
+     byte bounds, the plain path and `scatter_reduce_` alone (`library_ms`);
+     then drives the localizer on the mesh's point sampling (render mode 4),
+     case (a), where B1, B2 and the two splat kernels launch once a grid,
+     with the same all-plain checks (the all-plain renders by the plain
+     torch splat);
   7. drives the per-frame tracking front-end (`entry.tracking_entry()`,
      960x540, 2,000 ORB features, 2,048 local-map candidates), seeded from
      ground truth: renders frames 6-55 of the 520-frame circuit
@@ -150,7 +156,8 @@ Run from the root of a checkout. It
      (125 x 27 on 2,211,835 points), a local BA's (C, P) = (8, 2048) and an
      essential graph at V 424; every rank's result equal, each held against
      the unsharded call on the card (`MC_*` bars), each rank's launches of
-     B1, B2 and `render_gray` once a mesh grid; the sharded and the
+     B1, B2 and `render_gray` once a mesh grid, and of B1, B2, `splat_scatter`
+     and `splat_resolve` once a splat grid; the sharded and the
      unsharded call timed in turns in the one-rank world; then
      `entry.dryrun_multichip(2)` on two gloo ranks;
  14. prints a JSON line of the step times, one of the localizer's, one of the
@@ -412,10 +419,115 @@ def plain_rescore(loc, sw, Tcw, scores):
         same = _same_binning(sw.binned, host)
         plain = _all_plain_scores(raster.to_device(host, sw.Tcw.device), sw.Tcw, sw.K,
                                   sw.offsets, loc.cfg.render_near, warped, use_bg)
-    else:  # the splat is torch ops: only B1 and B2 have plain versions
-        plain = _plain_nmi(loc.render_sweep(sw), warped, use_bg)
+    else:
+        from orbslam2_nmi_torch.ops import render
+
+        synth = _plain_splat_grid(loc.model, sw.Tcw, sw.K, sw.offsets, sw.height, sw.width,
+                                  loc.cfg.render_near, loc.cfg.render_far, sw.point_size)
+        plain = _plain_nmi(synth, warped, use_bg)
     plain = plain.cpu().numpy()
     return float(np.abs(scores - plain).max()), int(scores.argmax()), int(plain.argmax()), same
+
+
+def _plain_splat_grid(model, Tcw, K, offsets, height, width, near, far, point_size):
+    """`render_translation_grid` by the plain torch splat, on any device."""
+    from orbslam2_nmi_torch.ops import render
+
+    keys = render.splat_keys_plain(model.points, model.gray, Tcw[:3, :3],
+                                   Tcw[:3, 3][None, :] - offsets, K, height, width, near, far)
+    return render.resolve_keys_plain(keys, point_size, 0.0)
+
+
+# The point splat's kernels at the deployment's shapes: the ZU-MAV camera and
+# grid (slambench/configs/zumav_cloud.json) over the terrain sampled at
+# 400 points/m^2, from the circuit's first pose.
+SPLAT_DENSITY = 400.0
+SPLAT_K = ((435.04593205, 0.0, 475.55781765), (0.0, 435.04593205, 274.7487729), (0.0, 0.0, 1.0))
+SPLAT_STEP = (0.2, 0.2, 0.5)
+SPLAT_POINT_SIZE = 3
+
+
+def splat_kernels(dev, smi, check, cuda_ms):
+    """Phase 6's first part: `splat_scatter` and `splat_resolve` against the
+    plain torch splat on the card, bit for bit (the key buffer, then the
+    images), and their times beside their byte bounds, the plain path's and
+    `scatter_reduce_`'s alone on the plain path's in-view candidates. Returns
+    the two kernels' rows (their launches are counted by the localizer's run)."""
+    import numpy as np
+    import torch
+
+    from orbslam2_nmi_torch.io.synthetic import SyntheticMeshWorld
+    from orbslam2_nmi_torch.ops import render
+
+    world = SyntheticMeshWorld.generate()
+    model = render.model_from_pointcloud(render.mesh_to_points(world.mesh, SPLAT_DENSITY), dev)
+    P = model.points.shape[0]
+    K = np.array(SPLAT_K, np.float32)
+    Hh, Ww, near, far = 540, 960, 5.0, 30.0
+    T = torch.as_tensor(world.pose_at(0, 520), dtype=torch.float32, device=dev)
+    offsets = render.translation_grid_offsets((3, 3, 3), SPLAT_STEP, device=dev)
+    S = offsets.shape[0]
+    R, t_all = T[:3, :3], T[:3, 3][None, :] - offsets
+    kargs = (model.points, model.gray, R, t_all, K, Hh, Ww, near, far)
+    keys = render.splat_keys(*kargs)
+    plain = render.splat_keys_plain(*kargs)
+    n_key = int((keys != plain).sum())
+    err_key = int((keys.to(torch.int64) - plain.to(torch.int64)).abs().max())
+    hit = float((plain < render._BIG).float().mean())
+    img = render.resolve_keys(keys, SPLAT_POINT_SIZE, 0.0)
+    img_plain = render.resolve_keys_plain(plain, SPLAT_POINT_SIZE, 0.0)
+    n_img = int((img != img_plain).sum())
+    err_img = float((img - img_plain).abs().max())
+    print(f"  {S} renders of {P} points at {Ww}x{Hh}: keys differing {n_key} (max |gap| "
+          f"{err_key}), pixels differing {n_img} (max |gap| {err_img}, point size "
+          f"{SPLAT_POINT_SIZE}); keys landed on {hit:.4f} of the buffer")
+    check(n_key == 0 and n_img == 0, "splat_scatter and splat_resolve equal the plain torch "
+          "splat bit for bit, key buffer and images")
+    del plain, img_plain
+    # the plain path's scatter-min alone on its in-view candidates' pixel
+    # indices and keys (built as splat_keys_plain builds them, outside the timing)
+    pix, key = render._splat_candidates(*kargs)
+    in_view = key < render._BIG
+    pix, key = pix[in_view], key[in_view]
+    n_in_view = pix.numel()
+    del in_view
+    buf = torch.empty(S * Hh * Ww, dtype=torch.int32, device=dev)
+
+    def scatter_only():
+        buf.fill_(render._BIG)
+        buf.scatter_reduce_(0, pix, key, "amin", include_self=True)
+
+    n_out = S * Hh * Ww
+    b_scatter, by_scatter = _bound_ms(16 * P + 4 * n_out, 25 * S * P)
+    b_resolve, by_resolve = _bound_ms(8 * n_out, SPLAT_POINT_SIZE**2 * n_out)
+    library_ms = cuda_ms(scatter_only)
+    del pix, key, buf
+    plain_ms = cuda_ms(lambda: _plain_splat_grid(model, T, K, offsets, Hh, Ww, near, far,
+                                                 SPLAT_POINT_SIZE), reps=3, warmup=1)
+    rows = {
+        "splat_scatter": dict(
+            ms=cuda_ms(lambda: render.splat_keys(*kargs)), bound_ms=b_scatter,
+            bound_by=by_scatter, plain_ms=plain_ms, library_ms=library_ms,
+            max_abs_err=float(err_key)),
+        "splat_resolve": dict(
+            ms=cuda_ms(lambda: render.resolve_keys(keys, SPLAT_POINT_SIZE, 0.0)),
+            bound_ms=b_resolve, bound_by=by_resolve, plain_ms=plain_ms, library_ms=None,
+            max_abs_err=err_img),
+    }
+    grid_ms = cuda_ms(lambda: render.render_translation_grid(model, T, K, offsets, Hh, Ww, near,
+                                                             far, SPLAT_POINT_SIZE))
+    whole, _ = _bound_ms(16 * P + 4 * n_out, 0)
+    print(f"  splat_scatter (the fill and the kernel) {rows['splat_scatter']['ms']:.4f} ms, "
+          f"bound {b_scatter:.4f} ms by {by_scatter}; splat_resolve "
+          f"{rows['splat_resolve']['ms']:.4f} ms, bound {b_resolve:.4f} ms by {by_resolve}; "
+          f"the whole grid render {grid_ms:.4f} ms against the splat's byte bound {whole:.4f} "
+          f"ms; the plain torch splat {plain_ms:.3f} ms; scatter_reduce_ (with the fill) "
+          f"alone on the plain path's {n_in_view} in-view candidates {library_ms:.4f} ms  "
+          f"[{smi}]")
+    for r in rows.values():
+        r.update(points=P, renders=S, grid_ms=grid_ms, source="orbslam2_nmi_torch/csrc/splat.cu",
+                 replaces="none (orbslam2_nmi_tpu/ops/render.py `_splat` is XLA ops)")
+    return rows
 
 
 def localizer_phases(dev, smi, cuda_ms, check):
@@ -513,14 +625,15 @@ def localizer_phases(dev, smi, cuda_ms, check):
         use_bg = loc.cfg.use_background
         want = {"joint_entropy": n, "marginal_entropy": n if use_bg else 0,
                 "rasterize_keys": 0, "render_gray": n if mesh else 0,
-                "bin_count": n if mesh else 0, "bin_fill": n if mesh else 0}
+                "bin_count": n if mesh else 0, "bin_fill": n if mesh else 0,
+                "splat_scatter": 0 if mesh else n, "splat_resolve": 0 if mesh else n}
         check(launches == want, f"{name}: launches {want}, one a grid evaluation")
         del loc.evaluate_grid, loc.prepare_sweep  # the recorders
         ms, runs = wall_ms(lambda: loc.relocalize_strategy(frame, T.copy(), **kw))
         print(f"  {name}: {ms:.3f} ms a call (runs {[round(t, 3) for t in runs]}, after 1 "
               f"warm-up; {out.iterations} iterations, {n} grids)  [{smi}]")
         record[name] = dict(ms=ms, runs_ms=runs, iterations=out.iterations, grids=n,
-                            nmi=out.nmi, relocalized=out.relocalized)
+                            nmi=out.nmi, relocalized=out.relocalized, launches=launches)
         return out, calls
 
     def split(loc, frame, T, kernel):
@@ -601,12 +714,15 @@ def localizer_phases(dev, smi, cuda_ms, check):
     # --- phase 6: pointcloud ----------------------------------------------------
     t_phase = time.perf_counter()
     print("localizer, pointcloud (render mode 4)")
+    record["splat_kernels"] = splat_kernels(dev, smi, check, cuda_ms)
     loc4, frame4, _ = entry_mod.localizer_entry(device=dev, render_mode=4)
     n_points = loc4.model.points.shape[0]
     print(f"  {n_points} points (mesh_to_points of the toy mesh), frame coverage "
           f"{(frame4 > 0).float().mean().item():.4f}")
-    out, _ = run_case("(a) initialization, pointcloud", loc4, frame4, T_pert,
-                      dict(initializing=True), False)
+    out, calls = run_case("(a) initialization, pointcloud", loc4, frame4, T_pert,
+                          dict(initializing=True), False)
+    for name, r in record["splat_kernels"].items():  # launches a grid, as counted there
+        r["launches"] = record["(a) initialization, pointcloud"]["launches"][name] / len(calls)
     t1, _ = pose_error(out.Tcw)
     check(out.relocalized and t1 <= 0.5 * t0, f"(a) pointcloud: translation error {t1:.5f} <= "
           f"0.5 x {t0:.5f}")
@@ -964,7 +1080,8 @@ def mapping_phase(dev, smi, check, cuda_ms):
     print(f"  initialization launches: {launches}, {n} grid evaluations")
     rec["init_launches"] = launches
     check(n > 0 and launches == {"joint_entropy": n, "marginal_entropy": n, "rasterize_keys": 0,
-                                 "render_gray": n, "bin_count": n, "bin_fill": n},
+                                 "render_gray": n, "bin_count": n, "bin_fill": n,
+                                 "splat_scatter": 0, "splat_resolve": 0},
           "the binning, B1, B2 and render_gray launched once a grid evaluation inside the "
           "latches, B3's keys epilogue never")
     check(init.ok, f"the map was initialized ({init.n_matches} matches, {init.n_points} points)")
@@ -2259,7 +2376,8 @@ def tools_phase(dev, smi, check, cuda_ms):
         f"the 27-candidate point splat {t['splat']['median_ms']:.3f} ms  [{smi}]")
     print(f"  launches over one sweep: {res['launches']}")
     check(res["launches"] == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                              "render_gray": 1, "bin_count": 0, "bin_fill": 0},
+                              "render_gray": 1, "bin_count": 0, "bin_fill": 0,
+                              "splat_scatter": 0, "splat_resolve": 0},
           "B1, B2 and render_gray launched once over the bench sweep, B3's keys epilogue never "
           "(the bench bins once, before the sweep)")
     warped = res["warped"]
@@ -2661,14 +2779,17 @@ def multichip_phase(smi, check, device="cuda"):
             print(f"    {name}: launches per rank {launches}")
             if name == "nmi_mesh":
                 check(all(ln == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                                 "render_gray": 1, "bin_count": 0, "bin_fill": 0}
+                                 "render_gray": 1, "bin_count": 0, "bin_fill": 0,
+                                 "splat_scatter": 0, "splat_resolve": 0}
                           for ln in launches),
                       f"{name}: each rank launched B1, B2 and render_gray once for the grid")
             elif name == "nmi_splat":
                 check(all(ln["joint_entropy"] == 1 and ln["marginal_entropy"] == 1
                           and ln["rasterize_keys"] == 0 and ln["render_gray"] == 0
+                          and ln["splat_scatter"] == 1 and ln["splat_resolve"] == 1
                           for ln in launches),
-                      f"{name}: each rank launched B1 and B2 once, B3 never")
+                      f"{name}: each rank launched B1, B2 and the splat's two kernels once, "
+                      "B3 never")
             if name.startswith("nmi"):
                 d = float(np.abs(got - ref[name]).max())
                 am, rm = int(np.argmax(got)), int(np.argmax(ref[name]))
@@ -2975,7 +3096,8 @@ def main() -> int:
     launches = dict(kernels.LAUNCHES)
     print(f"  launches: {launches}")
     check(launches == {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                       "render_gray": 1, "bin_count": 0, "bin_fill": 0},
+                       "render_gray": 1, "bin_count": 0, "bin_fill": 0, "splat_scatter": 0,
+                       "splat_resolve": 0},
           "B1, B2 and render_gray (B3 with B4/B5) launched once each; B3's keys epilogue, "
           "B3's parity surface, is not on the path, nor the binning (entry() bins once)")
     check(scores.shape == (S, R) and bool(torch.isfinite(scores).all()), "scores finite, [S, R]")
@@ -3038,9 +3160,13 @@ def main() -> int:
 
     out = []
     for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "render_gray"):
+        rows[name]["launches"] = launches[name]  # counted over the grid step above
+    rows.update(loc_record["splat_kernels"])  # counted a grid over the mode-4 localizer's run
+    for name in ("joint_entropy", "marginal_entropy", "rasterize_keys", "render_gray",
+                 "splat_scatter", "splat_resolve"):
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": r["source"],
-                    "replaces": r["replaces"], "launches": launches[name],
+                    "replaces": r["replaces"], "launches": r["launches"],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})

@@ -34,7 +34,7 @@ import torch
 from orbslam2_nmi_torch.utils import profiling
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("histogram_nmi.cu", "raster.cu")
+_SOURCES = ("histogram_nmi.cu", "raster.cu", "splat.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # -fmad=false: no multiply-add contraction, so every kernel rounds each
 # product and sum as its plain PyTorch version does and the two agree bit for
@@ -55,6 +55,8 @@ _SIGNATURES = {
                     _p, _p),
     "bin_count": (_p, _p, _i, _p, _i, _i, _i, _i, _p, _p, _p, _p),
     "bin_fill": (_p, _p, _p, _i, _p, _i, _i, _i, _i, _i, _p, _p, _p),
+    "splat_scatter": (_p, _p, _p, _p, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _f, _p, _p),
+    "splat_resolve": (_p, _i, _i, _i, _i, _f, _p, _p),
 }
 
 # launches per kernel since the last reset_launches()

@@ -8,7 +8,12 @@ over the keys is the depth test; glPointSize(k) becomes a k x k min-pool of
 the key image (the nearest depth in the neighborhood wins, as point sprites
 do under GL_LESS). The whole translation grid renders as one scatter over
 S x P entries. There is no TPU kernel here: the reference runs these as XLA
-ops, and the port as torch ops, on the device that holds the model.
+ops. On CUDA the port runs two hand-written kernels (`csrc/splat.cu`:
+`splat_scatter` projects every point once a candidate and folds its key in
+with atomicMin, `splat_resolve` min-pools and writes the gray), launched once
+each a render call (the scatter not for an empty cloud); on the CPU it runs the same function as torch ops
+(`splat_keys_plain`, `resolve_keys_plain`), which the card's tests hold the
+kernels against bit for bit.
 
 The arithmetic follows the reference's compiled render (`render_translation_grid`
 is jitted with `near` and `far` static, so XLA multiplies by the f32
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from orbslam2_nmi_torch import kernels
 from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel, PointCloudModel
 from orbslam2_nmi_torch.utils.profiling import labelled, span
@@ -117,27 +123,37 @@ def _min_pool(key_img: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
-def _splat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, gray: torch.Tensor, K,
-           height: int, width: int, near: float, far: float, point_size: int,
-           background: float) -> torch.Tensor:
-    """Render S sets of camera-frame points (coordinates x, y, z [S, P], gray
-    [P]) into [S, H, W] f32, in three phases, each a span: the projection to
-    pixel indices and keys, the scatter-min into the key buffer, and the
-    min-pool and gray."""
-    S = z.shape[0]
-    dev = z.device
+def _intrinsics(K) -> tuple:
+    """fx, fy, cx, cy as float32, read on the host (numpy or tensor)."""
+    K_host = np.asarray(K.cpu() if isinstance(K, torch.Tensor) else K, np.float32)
+    return tuple(K_host[i, j] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+
+
+def _inv_range(near: float, far: float) -> np.float32:
+    # the reference's compiled (z - near) / (far - near): times the f32 reciprocal
+    return np.float32(1.0) / np.float32(far - near)
+
+
+def _splat_candidates(points: torch.Tensor, gray: torch.Tensor, R: torch.Tensor,
+                      t_all: torch.Tensor, K, height: int, width: int, near: float,
+                      far: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version's [S, P] flat pixel indices (int64, into the [S, H, W]
+    buffer) and keys (int32): the points in each candidate's camera frame
+    (R p + t_all[s], the rotation in `se3.mv_fma`'s order), projected to pixel
+    indices and keys (span `render.splat.project`)."""
+    S = t_all.shape[0]
+    dev = points.device
+    rotated = se3.mv_fma(R, points).T  # [3, P], never TF32
+    x, y, z = (rotated[i][None, :] + t_all[:, i:i + 1] for i in range(3))  # [S, P] each
     with _SPLAT_PROJECT():
-        K_host = np.asarray(K.cpu() if isinstance(K, torch.Tensor) else K, np.float32)
-        fx, fy, cx, cy = (torch.tensor(K_host[i, j], device=dev)
-                          for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+        fx, fy, cx, cy = (torch.tensor(v, device=dev) for v in _intrinsics(K))
         z_safe = torch.where(z > 1e-6, z, torch.tensor(1e-6, device=dev))
         u = fx * x / z_safe + cx
         v = fy * y / z_safe + cy
         ui = torch.round(u).to(torch.int32)
         vi = torch.round(v).to(torch.int32)
         ok = (z > near) & (z < far) & (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
-        # the reference's compiled (z - near) / (far - near): times the f32 reciprocal
-        inv_range = torch.tensor(np.float32(1.0) / np.float32(far - near), device=dev)
+        inv_range = torch.tensor(_inv_range(near, far), device=dev)
         zq = torch.clamp(((z - near) * inv_range * _DEPTH_LEVELS).to(torch.int32), 0,
                          _DEPTH_LEVELS - 1)
         g8 = torch.clamp(gray, 0, 255).to(torch.int32)
@@ -146,13 +162,83 @@ def _splat(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor, gray: torch.Tensor
         # leaves it as it was
         base = torch.arange(S, device=dev, dtype=torch.int64)[:, None] * (height * width)
         pix = torch.where(ok, vi.to(torch.int64) * width + ui, 0) + base
+    return pix, key
+
+
+def splat_keys_plain(points: torch.Tensor, gray: torch.Tensor, R: torch.Tensor,
+                     t_all: torch.Tensor, K, height: int, width: int, near: float,
+                     far: float) -> torch.Tensor:
+    """Plain version of `splat_keys`, in torch ops on any device: the
+    candidates' pixel indices and keys, scatter-min into the key buffer (span
+    `render.splat.scatter`)."""
+    S = t_all.shape[0]
+    pix, key = _splat_candidates(points, gray, R, t_all, K, height, width, near, far)
     with _SPLAT_SCATTER():
-        buf = torch.full((S * height * width,), _BIG, dtype=torch.int32, device=dev)
+        buf = torch.full((S * height * width,), _BIG, dtype=torch.int32, device=points.device)
         buf.scatter_reduce_(0, pix.reshape(-1), key.reshape(-1), "amin", include_self=True)
+    return buf.reshape(S, height, width)
+
+
+def splat_keys(points: torch.Tensor, gray: torch.Tensor, R: torch.Tensor, t_all: torch.Tensor,
+               K, height: int, width: int, near: float, far: float) -> torch.Tensor:
+    """[S, H, W] int32 key buffer of S renders of the points (world [P, 3],
+    gray [P]) at rotation R [3, 3] and translations t_all [S, 3]: the nearest
+    point's zq * 256 + gray at each pixel, `_BIG` where none landed. Kernel
+    `splat_scatter` on CUDA (the intrinsics, near, far and the depth scale
+    are launch arguments; span `render.splat.project`, then the fill and the
+    launch in `render.splat.scatter`), the plain version on the CPU."""
+    if points.device.type == "cpu":
+        return splat_keys_plain(points, gray, R, t_all, K, height, width, near, far)
+    with _SPLAT_PROJECT():
+        R, t_all = R.contiguous(), t_all.contiguous()
+        dev = kernels.require_cuda(points, gray, R, t_all, dtypes=(torch.float32,) * 4)
+        P, S = points.shape[0], t_all.shape[0]
+        if (points.shape != (P, 3) or gray.shape != (P,) or R.shape != (3, 3)
+                or t_all.shape != (S, 3) or S == 0 or height <= 0 or width <= 0):
+            raise ValueError(f"points {tuple(points.shape)}, gray {tuple(gray.shape)}, R "
+                             f"{tuple(R.shape)}, t_all {tuple(t_all.shape)}, {height}x{width}: "
+                             "want [P, 3], [P], [3, 3], [S, 3] with S > 0 and a non-empty image")
+        args = (*(float(v) for v in _intrinsics(K)), float(near), float(far),
+                float(_inv_range(near, far)))
+    with _SPLAT_SCATTER():
+        keys = torch.full((S, height, width), _BIG, dtype=torch.int32, device=dev)
+        if P == 0:  # an empty cloud lands nothing: no launch
+            return keys
+        kernels.launch("splat_scatter", dev, points.data_ptr(), gray.data_ptr(), R.data_ptr(),
+                       t_all.data_ptr(), P, S, height, width, *args, keys.data_ptr())
+    return keys
+
+
+def resolve_keys_plain(keys: torch.Tensor, point_size: int, background: float) -> torch.Tensor:
+    """Plain version of `resolve_keys`, in torch ops on any device."""
     with _SPLAT_RESOLVE():
-        img_key = _min_pool(buf.reshape(S, height, width), point_size)
+        img_key = _min_pool(keys, point_size)
         return torch.where(img_key < _BIG, (img_key % 256).to(torch.float32),
-                           torch.tensor(background, dtype=torch.float32, device=dev))
+                           torch.tensor(background, dtype=torch.float32, device=keys.device))
+
+
+def resolve_keys(keys: torch.Tensor, point_size: int, background: float) -> torch.Tensor:
+    """[S, H, W] f32 renders of a key buffer: the point_size x point_size
+    min-pool (glPointSize), the winner's gray, `background` where no key
+    landed. Kernel `splat_resolve` on CUDA (span `render.splat.resolve`), the
+    plain version on the CPU."""
+    if keys.device.type == "cpu":
+        return resolve_keys_plain(keys, point_size, background)
+    with _SPLAT_RESOLVE():
+        dev = kernels.require_cuda(keys, dtypes=(torch.int32,))
+        S, height, width = keys.shape
+        out = torch.empty((S, height, width), dtype=torch.float32, device=dev)
+        kernels.launch("splat_resolve", dev, keys.data_ptr(), S, height, width,
+                       max(1, int(point_size)), float(background), out.data_ptr())
+    return out
+
+
+def _splat(model: RenderModel, R: torch.Tensor, t_all: torch.Tensor, K, height: int,
+           width: int, near: float, far: float, point_size: int,
+           background: float) -> torch.Tensor:
+    """[S, H, W] f32 renders of `model` at rotation R and translations t_all."""
+    keys = splat_keys(model.points, model.gray, R, t_all, K, height, width, near, far)
+    return resolve_keys(keys, point_size, background)
 
 
 @labelled("render_pointcloud")
@@ -167,10 +253,11 @@ def render_pointcloud(
     point_size: int = 3,
     background: float = 0.0,
 ) -> torch.Tensor:
-    """Render [H, W] float32 grayscale with z-buffering (GL_LESS semantics)."""
+    """Render [H, W] float32 grayscale with z-buffering (GL_LESS semantics):
+    the grid's splat at one candidate, `se3_apply`'s arithmetic."""
     Tcw = torch.as_tensor(Tcw, dtype=torch.float32, device=model.points.device)
-    pc = se3.se3_apply(Tcw, model.points).T[:, None, :]  # [3, 1, P]
-    return _splat(*pc, model.gray, K, height, width, near, far, point_size, background)[0]
+    return _splat(model, Tcw[:3, :3], Tcw[:3, 3][None, :], K, height, width, near, far,
+                  point_size, background)[0]
 
 
 @labelled("render_translation_grid")
@@ -185,15 +272,13 @@ def render_translation_grid(
     far: float,
     point_size: int = 3,
 ) -> torch.Tensor:
-    """Render every translation candidate: [S, H, W] float32, one scatter over
-    all S x P points."""
+    """Render every translation candidate: [S, H, W] float32, one splat over
+    all S x P points (the kernels on CUDA, torch ops on the CPU)."""
     dev = model.points.device
     Tcw = torch.as_tensor(Tcw, dtype=torch.float32, device=dev)
     offsets_cam = torch.as_tensor(offsets_cam, dtype=torch.float32, device=dev)
-    rotated = se3.mv_fma(Tcw[:3, :3], model.points).T  # [3, P], never TF32
     t_all = Tcw[:3, 3][None, :] - offsets_cam  # [S, 3]
-    x, y, z = (rotated[i][None, :] + t_all[:, i:i + 1] for i in range(3))  # [S, P] each
-    return _splat(x, y, z, model.gray, K, height, width, near, far, point_size, 0.0)
+    return _splat(model, Tcw[:3, :3], t_all, K, height, width, near, far, point_size, 0.0)
 
 
 def translation_grid_offsets(

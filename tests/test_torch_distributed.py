@@ -30,9 +30,10 @@ from orbslam2_nmi_torch.tools import scaling_bench
 
 ROOT = Path(__file__).resolve().parent.parent
 # one mesh grid: its binning (bin_count, bin_fill), B1, B2 and render_gray once
-# each; B3's keys epilogue is not on the path
+# each; B3's keys epilogue and the point splat's kernels are not on the path
 MESH_GRID_LAUNCHES = {"joint_entropy": 1, "marginal_entropy": 1, "rasterize_keys": 0,
-                      "render_gray": 1, "bin_count": 1, "bin_fill": 1}
+                      "render_gray": 1, "bin_count": 1, "bin_fill": 1, "splat_scatter": 0,
+                      "splat_resolve": 0}
 
 _WORKER = r"""
 import os, sys
