@@ -540,8 +540,9 @@ def localizer_phases(dev, smi, cuda_ms, check):
 
     from orbslam2_nmi_torch import entry as entry_mod
     from orbslam2_nmi_torch import kernels
+    from orbslam2_nmi_torch.geometry import se3
     from orbslam2_nmi_torch.slam.nmi import search_kernel as sk
-    from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer, _euler_zyx_matrix
+    from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 
     def sync():
         if dev.type == "cuda":
@@ -671,7 +672,7 @@ def localizer_phases(dev, smi, cuda_ms, check):
     T_pert = T_true.copy()
     T_pert[0, 3] = -step  # the camera moved +step along its x axis
     T_rot = T_true.copy()
-    T_rot[:3, :3] = _euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
+    T_rot[:3, :3] = se3.euler_zyx(torch.tensor([0.0, 0.03, 0.0])).numpy()
     print(f"  {W}x{H}, translation step {step} m, threshold {loc.cfg.threshold}")
 
     t0, _ = pose_error(T_pert)
@@ -2669,7 +2670,7 @@ def multichip_rank(reps, unsharded):
     T_pert = torch.eye(4, device=dev)
     T_pert[0, 3] = -entry_mod.SYNTH_STEP[0]
     off4 = render.translation_grid_offsets((5, 5, 5), entry_mod.SYNTH_STEP, device=dev)
-    ang4 = homography.rotation_grid_angles((3, 3, 3), entry_mod.WARP_STEP, device=dev)
+    ang4 = homography.rotation_grid_angles((3, 3, 3), entry_mod.WARP_STEP, device="cpu").numpy()
     ba = local_ba.BAProblem(**{k: t(v) for k, v in _mc_ba_problem().items()})
     pg = pose_graph.PoseGraphProblem(**{k: t(v) for k, v in _mc_pose_graph().items()})
 
@@ -2905,7 +2906,7 @@ def main() -> int:
     print(f"main path: {b.height}x{b.width}, {S} renders x {R} warps, tiles "
           f"{b.tiles_y}x{b.tiles_x}, capacity {b.capacity}, overflow {b.overflow}, "
           f"texture {tuple(b.texture.shape)} (reference window {win}), "
-          f"warp shift bound {fn.shift_bound}")
+          f"warp shift bound {fn.plan.bound}")
     rows = {}
 
     # --- B3: rasterizer -------------------------------------------------------

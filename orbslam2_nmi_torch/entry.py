@@ -153,7 +153,7 @@ class NMIGridStep:
 
     `render`, `warp` and `score` are the step's three stages, callable on
     their own for timing; `__call__` runs all three and the argmax. The
-    rotation grid's homographies and shift bound are built once, here.
+    rotation grid's warp plan is built once, here.
     """
 
     def __init__(self, binned: raster.BinnedMesh, K: np.ndarray, offsets: torch.Tensor,
@@ -163,17 +163,14 @@ class NMIGridStep:
         self.offsets = offsets
         self.angles = angles
         self.use_background = use_background
-        f32 = dict(dtype=torch.float32, device=binned.tri_data.device)
-        self.homographies = homography.homographies_from_angles(
-            torch.as_tensor(K, **f32), torch.as_tensor(angles, **f32))
-        self.shift_bound = homography.shift_bounds_for_angles(K, angles, binned.height,
-                                                              binned.width)
+        self.plan = homography.warp_plan(K, angles, binned.height, binned.width,
+                                         binned.tri_data.device)
 
     def render(self, Tcw: torch.Tensor) -> torch.Tensor:
         return raster.render_mesh_grid(self.binned, Tcw, self.K, self.offsets, NEAR, FAR)
 
     def warp(self, frame_gray: torch.Tensor) -> torch.Tensor:
-        return homography.warp_homographies(frame_gray, self.homographies, self.shift_bound)
+        return homography.warp_homographies(frame_gray, self.plan)
 
     def score(self, synth: torch.Tensor, warped: torch.Tensor) -> torch.Tensor:
         return histogram_nmi.nmi_scores(synth, warped, use_background=self.use_background)
@@ -1033,7 +1030,7 @@ def _dryrun_rank() -> dict:
     K = np.array([[60.0, 0, 40.0], [0, 60.0, 32.0], [0, 0, 1]], np.float32)
     model = _toy_model(n_points=5000, seed=2, device=dev)
     offsets = render.translation_grid_offsets((2, 2, 2), (0.3, 0.3, 0.3), device=dev)
-    angles = homography.rotation_grid_angles((2, 2, 1), (0.03, 0.03, 0.03), device=dev)
+    angles = homography.rotation_grid_angles((2, 2, 1), (0.03, 0.03, 0.03), device="cpu").numpy()
     frame = render.render_pointcloud(model, I4, K, Hh, Ww, 5.0, 30.0, 3)
     scores = sharded_nmi.sharded_nmi_search(mesh, model, frame, I4, offsets, angles, K, Hh, Ww,
                                             5.0, 30.0)

@@ -93,6 +93,17 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * W + b[..., None, None] * mm_fma(W, W)
 
 
+def euler_zyx(angles: torch.Tensor) -> torch.Tensor:
+    """[..., 3] Euler angles (ax, ay, az) -> [..., 3, 3] R = Rz(az) Ry(ay) Rx(ax):
+    the rotation of the NMI search's warp homographies and of its pose snap
+    (CalculateNMIRelocalization, Tracking.cc:2374-2419)."""
+    eye = torch.eye(3, dtype=angles.dtype, device=angles.device)
+    Rx = so3_exp(eye[0] * angles[..., 0:1])
+    Ry = so3_exp(eye[1] * angles[..., 1:2])
+    Rz = so3_exp(eye[2] * angles[..., 2:3])
+    return mm_fma(mm_fma(Rz, Ry), Rx)
+
+
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble 4x4 from 3x3 R and 3-vector t. Batched."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])

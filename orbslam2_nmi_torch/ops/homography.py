@@ -19,10 +19,13 @@ rule, so that both compute the same images:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from orbslam2_nmi_torch.geometry import se3
+from orbslam2_nmi_torch.ops import render
 from orbslam2_nmi_torch.utils.profiling import labelled
 
 MAX_TWO_PASS_SHIFT = 64  # px: the largest shift bound the two-pass warp takes
@@ -35,32 +38,18 @@ def _inverse(Hs: torch.Tensor) -> torch.Tensor:
 
 def rotation_grid_angles(warp_num: tuple[int, int, int], warp_step: tuple[float, float, float],
                          device: str | torch.device = "cuda") -> torch.Tensor:
-    """[R, 3] angles (ax, ay, az) for the full rotation grid, centered on zero.
-
-    Index r = (wz * numWarpY + wy) * numWarpX + wx, each axis spanning
-    (i - (n-1)/2) * step (image.cpp:76-108 center-offset convention).
-    """
-    nx, ny, nz = warp_num
-    sx, sy, sz = warp_step
-    f32 = dict(dtype=torch.float32, device=device)
-    ax = (torch.arange(nx, **f32) - (nx - 1) / 2.0) * sx
-    ay = (torch.arange(ny, **f32) - (ny - 1) / 2.0) * sy
-    az = (torch.arange(nz, **f32) - (nz - 1) / 2.0) * sz
-    AZ, AY, AX = torch.meshgrid(az, ay, ax, indexing="ij")  # [nz, ny, nx]
-    return torch.stack([AX.reshape(-1), AY.reshape(-1), AZ.reshape(-1)], dim=-1)
+    """[R, 3] angles (ax, ay, az) for the full rotation grid, centered on zero:
+    the grid and index of `render.translation_grid_offsets`, in radians
+    (image.cpp:76-108 center-offset convention)."""
+    return render.translation_grid_offsets(warp_num, warp_step, device)
 
 
 def homographies_from_angles(K: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """[R, 3] Euler angles -> [R, 3, 3] homographies H = K Rz Ry Rx K^-1."""
-    eye = torch.eye(3, dtype=angles.dtype, device=angles.device)
-    Rx = se3.so3_exp(eye[0] * angles[:, 0:1])
-    Ry = se3.so3_exp(eye[1] * angles[:, 1:2])
-    Rz = se3.so3_exp(eye[2] * angles[:, 2:3])
-    R = se3.mm_fma(se3.mm_fma(Rz, Ry), Rx)
     # float32 products whatever the TF32 flags (the reference pins HIGHEST,
     # homography.py:46-47); inv_ex does not wait on the device for an error
     # check
-    return se3.mm_fma(se3.mm_fma(K, R), torch.linalg.inv_ex(K).inverse)
+    return se3.mm_fma(se3.mm_fma(K, se3.euler_zyx(angles)), torch.linalg.inv_ex(K).inverse)
 
 
 def _pixel_grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -80,7 +69,7 @@ def _src_uv(Hi: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
     return u, v
 
 
-def warp_bilinear(img: torch.Tensor, Hs: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+def warp_bilinear(img: torch.Tensor, Hs: torch.Tensor) -> torch.Tensor:
     """Inverse-warp a [H, W] image by each of the 3x3 homographies Hs [R, 3, 3]
     (dst->src uses H^-1): [R, H, W] float32."""
     h, w = img.shape
@@ -104,7 +93,7 @@ def warp_bilinear(img: torch.Tensor, Hs: torch.Tensor, fill: float = 0.0) -> tor
         + f[base1 + u0i] * (1 - du) * dv
         + f[base1 + u1i] * du * dv
     )
-    return torch.where(inb, val, fill)
+    return torch.where(inb, val, 0.0)
 
 
 def _shift_resample(img: torch.Tensor, src: torch.Tensor, axis: int, k_min: int, k_max: int):
@@ -130,10 +119,9 @@ def _shift_resample(img: torch.Tensor, src: torch.Tensor, axis: int, k_min: int,
     return out, ok
 
 
-def warp_two_pass(img: torch.Tensor, Hs: torch.Tensor, max_shift, fill: float = 0.0) -> torch.Tensor:
+def warp_two_pass(img: torch.Tensor, Hs: torch.Tensor, bound: tuple[int, int]) -> torch.Tensor:
     """Separable homography warp of a [H, W] image by each of Hs [R, 3, 3]:
-    [R, H, W]. `max_shift` bounds |source - dest| per axis (an int, or a
-    (vertical, horizontal) pair)."""
+    [R, H, W]. `bound` bounds |source - dest| (vertical, horizontal)."""
     h, w = img.shape
     R = Hs.shape[0]
     Hi = _inverse(Hs)
@@ -144,11 +132,11 @@ def warp_two_pass(img: torch.Tensor, Hs: torch.Tensor, max_shift, fill: float = 
     # Catmull-Smith correction: the vertical pass must fetch the row the
     # HORIZONTAL source will need, so evaluate v at x' = x - du
     _, v_corr = _src_uv(Hi, xs - du, ys.expand(R, h, w))
-    mv, mh = max_shift if isinstance(max_shift, tuple) else (max_shift, max_shift)
+    mv, mh = bound
     img_r = img.to(torch.float32).expand(R, h, w)
     tmp, ok_v = _shift_resample(img_r, v_corr, axis=1, k_min=-mv, k_max=mv)
     out, ok_u = _shift_resample(tmp, u, axis=2, k_min=-mh, k_max=mh)
-    return torch.where(inb & ok_v & ok_u, out, fill)
+    return torch.where(inb & ok_v & ok_u, out, 0.0)
 
 
 def shift_bounds_for_angles(
@@ -160,8 +148,7 @@ def shift_bounds_for_angles(
     (~fx*ay), about z tangentially (~az * corner radius per axis); small
     projective terms are covered by the margin.
     """
-    K = np.asarray(K)
-    a = np.abs(np.asarray(angles))
+    a = np.abs(angles)
     ax, ay, az = a[:, 0].max(initial=0), a[:, 1].max(initial=0), a[:, 2].max(initial=0)
     fx, fy = float(K[0, 0]), float(K[1, 1])
     cx, cy = float(K[0, 2]), float(K[1, 2])
@@ -172,33 +159,37 @@ def shift_bounds_for_angles(
     return int(np.ceil(vert)), int(np.ceil(horiz))
 
 
-def shift_bound_for_angles(K: np.ndarray, angles: np.ndarray, height: int, width: int) -> int:
-    """The joint bound: the larger of `shift_bounds_for_angles`' two."""
-    v, h = shift_bounds_for_angles(K, angles, height, width)
-    return max(v, h)
+class WarpPlan(NamedTuple):
+    """How a rotation grid warps a frame of one size."""
+
+    homographies: torch.Tensor  # [R, 3, 3] float32 on the frame's device
+    bound: tuple[int, int]  # (vertical, horizontal) static shift bound
+
+
+def warp_plan(K, angles, height: int, width: int, device: str | torch.device) -> WarpPlan:
+    """The plan of the rotation grid `angles` [R, 3] for a `height` x `width`
+    frame. K and the angles are host float32 (numpy or CPU tensors): the bound
+    picks the warp on the host, and a device tensor would wait to be read."""
+    K, angles = np.asarray(K, np.float32), np.asarray(angles, np.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    return WarpPlan(homographies_from_angles(torch.as_tensor(K, **f32),
+                                             torch.as_tensor(angles, **f32)),
+                    shift_bounds_for_angles(K, angles, height, width))
 
 
 @labelled("warp_homographies")
-def warp_homographies(img: torch.Tensor, Hs: torch.Tensor, bound: tuple[int, int]) -> torch.Tensor:
-    """Warp `img` [H, W] by the homographies Hs [R, 3, 3] whose shifts are
-    bounded by `bound` (from `shift_bounds_for_angles`): [R, H, W] float32.
-    The reference's rule: the two-pass warp when the bound is at most
+def warp_homographies(img: torch.Tensor, plan: WarpPlan) -> torch.Tensor:
+    """Warp `img` [H, W] by the plan's homographies: [R, H, W] float32.
+    The reference's rule: the two-pass warp when the plan's bound is at most
     MAX_TWO_PASS_SHIFT, else the exact bilinear warp."""
-    if max(bound) <= MAX_TWO_PASS_SHIFT:
-        return warp_two_pass(img, Hs, bound)
-    return warp_bilinear(img, Hs)
+    if max(plan.bound) <= MAX_TWO_PASS_SHIFT:
+        return warp_two_pass(img, plan.homographies, plan.bound)
+    return warp_bilinear(img, plan.homographies)
 
 
 @labelled("warp_rotation_grid")
 def warp_rotation_grid(img: torch.Tensor, K, angles) -> torch.Tensor:
-    """Warp `img` [H, W] by every rotation hypothesis: [R, H, W] float32.
-
-    `K` and `angles` may be numpy arrays or tensors; they are read on the host
-    to bound the shifts. A caller that warps many frames by one grid builds
-    the homographies and the bound once and calls `warp_homographies`.
-    """
-    K_np = K.cpu().numpy() if isinstance(K, torch.Tensor) else np.asarray(K)
-    ang_np = angles.cpu().numpy() if isinstance(angles, torch.Tensor) else np.asarray(angles)
-    f32 = dict(dtype=torch.float32, device=img.device)
-    Hs = homographies_from_angles(torch.as_tensor(K_np, **f32), torch.as_tensor(ang_np, **f32))
-    return warp_homographies(img, Hs, shift_bounds_for_angles(K_np, ang_np, *img.shape))
+    """Warp `img` [H, W] by every rotation hypothesis `angles` [R, 3] (host
+    float32, as `K`): [R, H, W] float32. The plan is built on each call; a
+    caller that warps many frames by one grid keeps its `warp_plan`."""
+    return warp_homographies(img, warp_plan(K, angles, *img.shape, img.device))

@@ -9,15 +9,17 @@ Each rank:
   1. renders its S/D candidates (the point splat, or kernel B3 and the
      sampler for a mesh); the pads are offset 1e6 m, an empty render;
   2. warps the frame by its R/D rotation hypotheses, by the two-pass or the
-     gather warp as the FULL angle set decides (so sharding never changes
-     which warp runs), and `all_gather`s the warps to [R_pad, H, W];
+     gather warp as the FULL angle set's `homography.warp_plan` decides (so
+     sharding never changes which warp runs), and `all_gather`s the warps to
+     [R_pad, H, W];
   3. scores its renders against every warp with `nmi_scores` (kernel B2 once,
      then B1 once, on the card);
   4. `all_gather`s the [S/D, R_pad] score blocks, so that every rank returns
      the full [S, R] scores, the pad rows at -inf.
 
 The model (splat points, or the binned mesh and its texture) is replicated:
-every rank passes the same one, as in the JAX module.
+every rank passes the same one, as in the JAX module. K and the angles come
+on the host, so the search reads nothing back from the device.
 """
 
 from __future__ import annotations
@@ -38,33 +40,23 @@ def pad_to_multiple(x: torch.Tensor, m: int, axis: int = 0, fill=0.0) -> torch.T
     return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=axis)
 
 
-def _shard_warp_plan(frame_gray: torch.Tensor, K, angles_p: torch.Tensor):
-    """(homographies [R_pad, 3, 3], warp_fn(Hs_local) -> [R_loc, H, W]) with
-    the two-pass-or-gather choice that `warp_rotation_grid` makes for the
-    FULL angle set: sharding must not change which warp runs."""
-    K_np = np.asarray(K.cpu() if isinstance(K, torch.Tensor) else K, np.float32)
-    bound = homography.shift_bounds_for_angles(K_np, angles_p.cpu().numpy(), *frame_gray.shape)
-    f32 = dict(dtype=torch.float32, device=frame_gray.device)
-    Hs = homography.homographies_from_angles(torch.as_tensor(K_np, **f32),
-                                             angles_p.to(**f32))
-    return Hs, lambda h: homography.warp_homographies(frame_gray, h, bound)
-
-
 def _search(mesh: Mesh, render_fn, frame_gray, offsets_cam, angles, K, metric):
     """The shared body: pad, warp and gather, render, score and gather."""
     n_dev, rank = mesh.size(POSE_AXIS), mesh.get_local_rank(POSE_AXIS)
     dev = mesh.device
     frame_gray = torch.as_tensor(frame_gray, dtype=torch.float32, device=dev)
     offsets_cam = torch.as_tensor(offsets_cam, dtype=torch.float32, device=dev)
-    angles = torch.as_tensor(angles, dtype=torch.float32, device=dev)
-    S, R = offsets_cam.shape[0], angles.shape[0]
+    S, R = offsets_cam.shape[0], len(angles)
     offsets_p = pad_to_multiple(offsets_cam, n_dev, fill=1e6)  # far away: an empty render
-    angles_p = pad_to_multiple(angles, n_dev)  # identity-rotation pads
-    S_loc, R_loc = offsets_p.shape[0] // n_dev, angles_p.shape[0] // n_dev
-    Hs, warp_one = _shard_warp_plan(frame_gray, K, angles_p)
+    # identity-rotation pads; the plan of the FULL padded set picks the warp,
+    # so sharding never changes which warp runs
+    plan = homography.warp_plan(K, pad_to_multiple(torch.as_tensor(angles), n_dev),
+                                *frame_gray.shape, dev)
+    S_loc, R_loc = offsets_p.shape[0] // n_dev, plan.homographies.shape[0] // n_dev
     # the warps are sharded too and exchanged with one all_gather: a
     # replicated warp would cost D times the work for the same wall time
-    warped = all_gather_cat(warp_one(Hs[rank * R_loc:(rank + 1) * R_loc]), mesh, POSE_AXIS)
+    local = homography.WarpPlan(plan.homographies[rank * R_loc:(rank + 1) * R_loc], plan.bound)
+    warped = all_gather_cat(homography.warp_homographies(frame_gray, local), mesh, POSE_AXIS)
     synth = render_fn(offsets_p[rank * S_loc:(rank + 1) * S_loc])
     scores = all_gather_cat(histogram_nmi.nmi_scores(synth, warped, metric=metric), mesh,
                             POSE_AXIS)  # [S_pad, R_pad]
@@ -78,8 +70,8 @@ def sharded_nmi_search(
     frame_gray: torch.Tensor,  # [H, W] float32, the same on every rank
     Tcw: torch.Tensor,  # [4, 4]
     offsets_cam: torch.Tensor,  # [S, 3] translation candidates
-    angles: torch.Tensor,  # [R, 3] rotation candidates
-    K,
+    angles: np.ndarray,  # [R, 3] host float32 rotation candidates
+    K: np.ndarray,  # [3, 3] host float32 intrinsics
     height: int,
     width: int,
     near: float,
@@ -102,8 +94,8 @@ def sharded_nmi_search_mesh(
     frame_gray: torch.Tensor,  # [H, W] float32, the same on every rank
     Tcw: torch.Tensor,  # [4, 4]
     offsets_cam: torch.Tensor,  # [S, 3] translation candidates
-    angles: torch.Tensor,  # [R, 3] rotation candidates
-    K,
+    angles: np.ndarray,  # [R, 3] host float32 rotation candidates
+    K: np.ndarray,  # [3, 3] host float32 intrinsics
     near: float,
     far: float,
     metric: str = "SUC",

@@ -115,16 +115,6 @@ def _box_pool(img: torch.Tensor, scale: int) -> torch.Tensor:
     return total * float(np.float32(1.0) / np.float32(scale * scale))
 
 
-def _euler_zyx_matrix(angles: torch.Tensor) -> torch.Tensor:
-    """R = Rz(az) Ry(ay) Rx(ax) — same composition as the warp homographies
-    and CalculateNMIRelocalization (Tracking.cc:2374-2419)."""
-    eye = torch.eye(3, dtype=torch.float32)
-    Rx = se3.so3_exp(eye[0] * angles[0])
-    Ry = se3.so3_exp(eye[1] * angles[1])
-    Rz = se3.so3_exp(eye[2] * angles[2])
-    return se3.mm_fma(se3.mm_fma(Rz, Ry), Rx)
-
-
 def _inverse(T: np.ndarray) -> np.ndarray:
     """SE(3) inverse of a host 4x4 pose, in float32."""
     return se3.se3_inverse(torch.as_tensor(np.asarray(T, np.float32))).numpy()
@@ -220,10 +210,7 @@ class NMILocalizer:
         """The host stage: the frame and intrinsics at `scale`, the candidate
         grid, and for a mesh its binning (on the card by kernels, from the
         resident mesh; on the CPU in numpy)."""
-        offsets_host = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
-                                                       device="cpu")
-        angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
-                                                 device="cpu").numpy()
+        offsets_host = kernel.offsets()
         h, w = self.height // scale, self.width // scale
         frame = torch.as_tensor(frame_gray, dtype=torch.float32, device=self.device)
         K = self.K
@@ -237,14 +224,15 @@ class NMILocalizer:
             # whole candidate grid so all S renders share one binning
             binned = raster.bin_mesh(
                 self.mesh, np.asarray(Tcw), K, h, w, self.cfg.render_near, self.cfg.render_far,
-                max_offset=np.abs(offsets_host.numpy()).max(axis=0), device=self.device,
+                max_offset=np.abs(offsets_host).max(axis=0), device=self.device,
             )
             if binned.overflow:
                 self.log(f"NMI raster: {binned.overflow} tile-list entries dropped (capacity)")
         return Sweep(
             frame=frame, K=K,
             Tcw=torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device),
-            offsets=offsets_host.to(self.device), angles=angles, height=h, width=w,
+            offsets=torch.from_numpy(offsets_host).to(self.device), angles=kernel.angles(),
+            height=h, width=w,
             point_size=max(1, int(round(self.cfg.render_point_size / (self.scale * scale)))),
             binned=binned,
         )
@@ -283,10 +271,10 @@ class NMILocalizer:
         s_flat, r_flat = np.unravel_index(np.argmax(scores), scores.shape)
         kernel = kernel.with_best_from_flat(int(s_flat), int(r_flat), float(scores[s_flat, r_flat]))
         if self.debug_dir:
-            self._save_debug_overlays(frame_gray, Tcw, kernel, scores, int(s_flat), int(r_flat))
+            self._save_debug_overlays(frame_gray, Tcw, kernel, scores)
         return self._apply_best_cell(Tcw, kernel), kernel
 
-    def _save_debug_overlays(self, frame_gray, Tcw, kernel, scores, s_best, r_best):
+    def _save_debug_overlays(self, frame_gray, Tcw, kernel, scores):
         """The best and the middle cell's overlays at full resolution, the
         grid cell and score in the file name (Tracking.cc:1911-1948: red =
         camera, green = render). The render is one candidate through kernel
@@ -296,14 +284,12 @@ class NMILocalizer:
 
         from orbslam2_nmi_torch.viz.replay import save_nmi_debug_overlay
 
-        offsets = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
-                                                  device=self.device)
-        angles = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
-                                                 device="cpu").numpy()
+        offsets = torch.from_numpy(kernel.offsets()).to(self.device)
+        angles = kernel.angles()
         frame = torch.as_tensor(frame_gray, dtype=torch.float32, device=self.device)
         T = torch.as_tensor(np.asarray(Tcw, np.float32), device=self.device)
         near, far = self.cfg.render_near, self.cfg.render_far
-        s_mid, r_mid = offsets.shape[0] // 2, angles.shape[0] // 2
+        (s_best, r_best), s_mid, r_mid = kernel.best_flat(), kernel.n_synth // 2, kernel.n_warp // 2
         binned = None if self.mesh is None else raster.bin_mesh(
             self.mesh, np.asarray(Tcw), self.K, self.height, self.width, near, far,
             device=self.device)
@@ -328,18 +314,8 @@ class NMILocalizer:
         """CalculateNMIRelocalization (Tracking.cc:2374-2419): compose the best
         warp rotation into Twc and shift the camera center by the best render
         offset (expressed in the ORIGINAL camera axes). Host float32."""
-        offsets = render.translation_grid_offsets(kernel.num_synth, kernel.step_synth,
-                                                  device="cpu").numpy()
-        nsx, nsy, _ = kernel.num_synth
-        bsx, bsy, bsz = kernel.best_synth
-        off_cam = offsets[(bsz * nsy + bsy) * nsx + bsx]
-
-        angles_r = homography.rotation_grid_angles(kernel.num_warp, kernel.step_warp,
-                                                   device="cpu")
-        nwx, nwy, _ = kernel.num_warp
-        bwx, bwy, bwz = kernel.best_warp
-        R_warp = _euler_zyx_matrix(angles_r[(bwz * nwy + bwy) * nwx + bwx]).numpy()
-
+        off_cam, angles = kernel.best_cell()
+        R_warp = se3.euler_zyx(torch.from_numpy(angles)).numpy()
         Twc = _inverse(Tcw)
         Twc_new = Twc.copy()
         Twc_new[:3, :3] = Twc[:3, :3] @ R_warp

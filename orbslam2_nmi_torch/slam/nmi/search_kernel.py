@@ -1,7 +1,8 @@
 """The 6-DoF NMI search-grid descriptor + coarse-to-fine schedule.
 
 A copy of `orbslam2_nmi_tpu/slam/nmi/search_kernel.py`, kept in this package
-so that the port imports nothing of the JAX package.
+so that the port imports nothing of the JAX package, with the grids added: the
+one place that maps a flat (s, r) index to a cell and a cell to its values.
 
 Host-side pure-Python state machine replicating NmiSearchKernel (reference:
 Thirdparty/Localization/nmiSearchKernel.cpp): grid sizes, step sizes, best
@@ -14,6 +15,10 @@ to a single cell when its step falls under the minimum
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+import numpy as np
+
+from orbslam2_nmi_torch.ops import homography, render
 
 MIN_KERNEL_TRANSLATION = 0.005  # m   (nmi_prop_MIN_KERNEL_TRANSLATION)
 MIN_KERNEL_ROTATION = 0.001  # rad (nmi_prop_MIN_KERNEL_ROTATION)
@@ -48,15 +53,26 @@ class SearchKernel:
 
     def with_best_from_flat(self, s_flat: int, r_flat: int, nmi: float) -> "SearchKernel":
         """Decode flat (s, r) argmax indices; layout s=(sz*ny+sy)*nx+sx."""
-        nsx, nsy, _ = self.num_synth
-        nwx, nwy, _ = self.num_warp
-        sx = s_flat % nsx
-        sy = (s_flat // nsx) % nsy
-        sz = s_flat // (nsx * nsy)
-        wx = r_flat % nwx
-        wy = (r_flat // nwx) % nwy
-        wz = r_flat // (nwx * nwy)
-        return replace(self, best_synth=(sx, sy, sz), best_warp=(wx, wy, wz), nmi=nmi)
+        return replace(self, best_synth=_cell(s_flat, self.num_synth),
+                       best_warp=_cell(r_flat, self.num_warp), nmi=nmi)
+
+    def best_flat(self) -> tuple[int, int]:
+        """The best cell's flat (s, r) indices: `with_best_from_flat`'s inverse."""
+        return _flat(self.best_synth, self.num_synth), _flat(self.best_warp, self.num_warp)
+
+    def offsets(self) -> np.ndarray:
+        """[S, 3] host float32 translation offsets of the grid, in flat order."""
+        return render.translation_grid_offsets(self.num_synth, self.step_synth, "cpu").numpy()
+
+    def angles(self) -> np.ndarray:
+        """[R, 3] host float32 rotation angles of the grid, in flat order."""
+        return homography.rotation_grid_angles(self.num_warp, self.step_warp, "cpu").numpy()
+
+    def best_cell(self) -> tuple[np.ndarray, np.ndarray]:
+        """Rows `best_flat()` of `offsets()` and `angles()` (host float32 [3]
+        each), computed for that cell alone."""
+        return (_axis_values(self.best_synth, self.num_synth, self.step_synth),
+                _axis_values(self.best_warp, self.num_warp, self.step_warp))
 
     def resized(self) -> "SearchKernel":
         """Coarse-to-fine shrink (nmiSearchKernel.cpp resizeKernel): halve the
@@ -82,6 +98,22 @@ class SearchKernel:
         return replace(
             self, num_synth=num_s, num_warp=num_w, step_synth=step_s, step_warp=step_w
         )
+
+
+def _cell(flat: int, num: tuple[int, int, int]) -> tuple[int, int, int]:
+    """Per-axis indices (x, y, z) of flat index (z * ny + y) * nx + x."""
+    nx, ny, _ = num
+    return flat % nx, (flat // nx) % ny, flat // (nx * ny)
+
+
+def _flat(cell: tuple[int, int, int], num: tuple[int, int, int]) -> int:
+    """`_cell`'s inverse."""
+    return (cell[2] * num[1] + cell[1]) * num[0] + cell[0]
+
+
+def _axis_values(cell, num, step) -> np.ndarray:
+    """(i - (n - 1) / 2) * step per axis in float32, as the grid builders compute it."""
+    return (np.float32(cell) - np.float32([(n - 1) / 2.0 for n in num])) * np.float32(step)
 
 
 def initial_kernel_for_drift(

@@ -55,7 +55,7 @@ def _problems(dev):
     model = render.RenderModel(points=t(pts), gray=t(gray))
     K = np.array([[240.0, 0, 160], [0, 240.0, 120], [0, 0, 1]], np.float32)
     offsets = render.translation_grid_offsets((2, 2, 2), (0.3, 0.3, 0.3), device=dev)
-    angles = homography.rotation_grid_angles((2, 2, 2), (0.03, 0.03, 0.03), device=dev)
+    angles = homography.rotation_grid_angles((2, 2, 2), (0.03, 0.03, 0.03), device="cpu").numpy()
     I4 = torch.eye(4, device=dev)
     frame = render.render_pointcloud(model, I4, K, H, W, 1.0, 30.0, 3)
     nmi = (model, frame, I4, offsets, angles, K, H, W, 1.0, 30.0)

@@ -321,12 +321,12 @@ def test_tf32_changes_neither_grid_step_nor_localizer(cuda_device, record_proper
     """Fault C1: with TF32 on for the whole process, the grid step at 960x540
     and the localizer's case (b) (a 0.03 rad rotation, rotation-only kernel)
     give max |diff| 0 against the default run. The flags are restored."""
-    from orbslam2_nmi_torch.slam.nmi.localizer import _euler_zyx_matrix
+    from orbslam2_nmi_torch.geometry import se3
 
     fn, (frame, Tcw) = tentry.entry(device=cuda_device)
     loc, lframe, T_true = tentry.localizer_entry(device=cuda_device)
     T_rot = T_true.copy()
-    T_rot[:3, :3] = _euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
+    T_rot[:3, :3] = se3.euler_zyx(torch.tensor([0.0, 0.03, 0.0])).numpy()
     kw = dict(dist_since=(1e-4,) * 3, rot_since=(1.5,) * 3)
 
     def run():

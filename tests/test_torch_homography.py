@@ -12,17 +12,23 @@ image, 27 rotations of 0.02/0.02/0.04 rad, fx = 150):
     pixels, where a source coordinate lies so close to an integer that its
     floor() flips between the two packages (none did at this size);
   * the roll bank of the two-pass warp's 1-D resample equals the port's
-    gather exactly, wrap-around taps included.
+    gather exactly, wrap-around taps included;
+  * `warp_plan` is `homographies_from_angles` and `shift_bounds_for_angles`
+    bit for bit, and every warp of the port (the localizer's sweep, the
+    entry's grid step, the sharded search) takes its plan from it.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_port_fixtures import run_ranks, sharding_mesh_problem, warp_plan_calls_rank
 
+from orbslam2_nmi_torch import entry as tentry
 from orbslam2_nmi_torch.geometry import se3 as tse3
 from orbslam2_nmi_torch.ops import homography as th
 from orbslam2_nmi_torch.ops import render as trender
+from orbslam2_nmi_torch.slam.nmi import search_kernel as tsk
 from orbslam2_nmi_tpu.config import CameraConfig
 from orbslam2_nmi_tpu.geometry import se3 as jse3
 from orbslam2_nmi_tpu.ops import homography as jh
@@ -133,3 +139,55 @@ def test_identity_warp_preserves_image():
     Kc = CameraConfig(fx=100, fy=100, cx=32, cy=24).K
     out = th.warp_rotation_grid(torch.from_numpy(img), Kc, np.zeros((1, 3), np.float32))
     np.testing.assert_allclose(out[0].numpy(), img, atol=1e-2)
+
+
+ETH = tsk.SearchKernel()  # the ETH_small grid: 3^3 rotations of (0.02, 0.02, 0.05) rad
+PLAN_GRIDS = {
+    "eth": ETH,
+    "drift_collapsed": tsk.initial_kernel_for_drift(ETH, (1.0, 0.5, 0.001), (0.5, 0.0, 0.02)),
+    "init": tsk.initial_kernel_for_init(ETH),
+    "gather": tsk.SearchKernel(num_warp=(3, 1, 1), step_warp=(0.8, 0.0, 0.0)),
+}
+
+
+def _assert_same_bits(a, b):
+    np.testing.assert_array_equal(np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32))
+
+
+@pytest.mark.parametrize("grid", sorted(PLAN_GRIDS))
+def test_warp_plan_is_the_builders(grid):
+    """The plan holds `homographies_from_angles` and `shift_bounds_for_angles`
+    of the host angles bit for bit, and `warp_rotation_grid` is the warp its
+    bound picks, bit for bit. The drift grid has collapsed axes, the last
+    grid's bound is over MAX_TWO_PASS_SHIFT and takes the gather."""
+    kernel = PLAN_GRIDS[grid]
+    ang, img = kernel.angles(), torch.from_numpy(_img())
+    plan = th.warp_plan(K, ang, *img.shape, "cpu")
+    Hs = th.homographies_from_angles(torch.from_numpy(K), torch.from_numpy(ang))
+    bound = th.shift_bounds_for_angles(K, ang, *img.shape)
+    _assert_same_bits(plan.homographies, Hs)
+    assert plan.bound == bound
+    assert (max(bound) > th.MAX_TWO_PASS_SHIFT) == (grid == "gather")
+    want = th.warp_bilinear(img, Hs) if grid == "gather" else th.warp_two_pass(img, Hs, bound)
+    _assert_same_bits(th.warp_rotation_grid(img, K, ang), want)
+
+
+@pytest.mark.parametrize("caller", ["warp_sweep", "grid_step", "sharded_one_rank"])
+def test_every_warp_takes_its_plan_from_warp_plan(caller, monkeypatch):
+    """Two warps each: the localizer's `warp_sweep` and the sharded search
+    build one plan a warp, the entry's grid step one for its life."""
+    if caller == "sharded_one_rank":  # counted inside the spawned rank
+        assert run_ranks(warp_plan_calls_rank, 1, sharding_mesh_problem(), 2) == [2]
+        return
+    calls = []
+    build = th.warp_plan
+    monkeypatch.setattr(th, "warp_plan", lambda *a: calls.append(a) or build(*a))
+    if caller == "warp_sweep":
+        loc, frame, T = tentry.localizer_entry(device="cpu", height=32, width=64)
+        sweep = loc.prepare_sweep(frame, T, loc.initial_kernel)
+        warps = [loc.warp_sweep(sweep) for _ in range(2)]
+    else:
+        fn, (frame, _) = tentry.entry(device="cpu", height=32, width=64)
+        warps = [fn.warp(frame) for _ in range(2)]
+    assert len(calls) == (2 if caller == "warp_sweep" else 1)
+    _assert_same_bits(warps[0], warps[1])

@@ -3,8 +3,8 @@ JAX package.
 
 Bars, each measured on these inputs:
   * the search kernel's logic (a copy): equal, field for field;
-  * pose math on the host (`geometry/se3.py`'s SE(3) functions,
-    `_euler_zyx_matrix`, `_apply_best_cell`) and the coarse passes'
+  * pose math on the host (`geometry/se3.py`'s SE(3) functions and
+    `euler_zyx`, `_apply_best_cell`) and the coarse passes'
     `_box_pool`: within 1e-6;
   * one grid on the mesh path, 48x256, 3 renders x 1 warp, against the JAX
     localizer with `force_mesh_raster=True` (its Pallas rasterizer in
@@ -91,6 +91,25 @@ def test_search_kernel_matches_reference(case):
     assert _plain(SK_CASES[case](tsk)) == _plain(SK_CASES[case](jsk))
 
 
+@pytest.mark.parametrize("num_synth, num_warp", [((3, 3, 3), (3, 3, 3)), ((5, 5, 5), (3, 1, 3)),
+                                                 ((1, 1, 1), (3, 3, 3))])
+def test_best_flat_inverts_with_best_from_flat(num_synth, num_warp):
+    """On every cell, `best_flat()` gives back the flat indices that
+    `with_best_from_flat` decoded, and `best_cell()` is that row of
+    `offsets()` and `angles()`, bit for bit."""
+    kernel = tsk.SearchKernel(num_synth=num_synth, num_warp=num_warp,
+                              step_synth=(0.3, 0.2, 0.5), step_warp=(0.02, 0.03, 0.05))
+    offsets, angles = kernel.offsets(), kernel.angles()
+    assert offsets.shape == (kernel.n_synth, 3) and angles.shape == (kernel.n_warp, 3)
+    for s in range(kernel.n_synth):
+        for r in range(kernel.n_warp):
+            best = kernel.with_best_from_flat(s, r, 0.5)
+            assert best.best_flat() == (s, r)
+            off, ang = best.best_cell()
+            np.testing.assert_array_equal(off.view(np.uint32), offsets[s].view(np.uint32))
+            np.testing.assert_array_equal(ang.view(np.uint32), angles[r].view(np.uint32))
+
+
 # --------------------------------------------------------------------- pose math
 
 
@@ -114,7 +133,7 @@ def _port_loc(cfg, cam, model=None, mesh=None, device="cpu", log_fn=None):
 def _pose(seed):
     rng = np.random.default_rng(seed)
     T = np.eye(4, dtype=np.float32)
-    T[:3, :3] = tloc._euler_zyx_matrix(torch.from_numpy(
+    T[:3, :3] = tse3.euler_zyx(torch.from_numpy(
         rng.normal(size=3).astype(np.float32) * 0.2)).numpy()
     T[:3, 3] = rng.normal(size=3).astype(np.float32) * 2.0
     return T
@@ -136,7 +155,7 @@ def test_pose_math_matches_reference(fn):
             np.broadcast_to(np.eye(4, dtype=np.float32), Ts.shape), atol=POSE_ATOL)
     elif fn == "euler_zyx_matrix":
         for a in rng.normal(size=(8, 3)).astype(np.float32) * 0.3:
-            np.testing.assert_allclose(tloc._euler_zyx_matrix(torch.from_numpy(a)).numpy(),
+            np.testing.assert_allclose(tse3.euler_zyx(torch.from_numpy(a)).numpy(),
                                        np.asarray(jloc._euler_zyx_matrix(jnp.asarray(a))),
                                        atol=POSE_ATOL, rtol=0)
     elif fn == "box_pool":
@@ -211,7 +230,7 @@ def _strategy_case(case):
     if case in ("translation", "coarse"):
         T[0, 3] += 0.3  # one grid step
     else:  # a one-step rotation about y, with the drift sizing of a rotation-only kernel
-        T[:3, :3] = tloc._euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
+        T[:3, :3] = tse3.euler_zyx(torch.tensor([0.0, 0.03, 0.0])).numpy()
         kw = dict(dist_since=(1e-4,) * 3, rot_since=(1.5,) * 3)
     return cfg, T, kw
 

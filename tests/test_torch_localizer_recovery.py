@@ -26,9 +26,10 @@ import torch
 from torch_port_fixtures import MESH_CAMERA, height_field_mesh, make_world, mesh_frame
 
 from orbslam2_nmi_torch.config import CameraConfig, NMIConfig, NMIGridConfig
+from orbslam2_nmi_torch.geometry import se3
 from orbslam2_nmi_torch.io.model_loader import MeshModel
 from orbslam2_nmi_torch.ops import render
-from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer, _euler_zyx_matrix
+from orbslam2_nmi_torch.slam.nmi.localizer import NMILocalizer
 
 POINT_CAM = CameraConfig(fx=120.0, fy=120.0, cx=80.0, cy=60.0, width=160, height=120)
 
@@ -71,7 +72,7 @@ def test_port_localizer_recovers(render_mode, case):
     if case in ("translation", "coarse", "garbage"):
         T[0, 3] = -step  # the camera moved +step along its x axis
     if case == "rotation":  # tiny translation drift, large rotation drift
-        T[:3, :3] = _euler_zyx_matrix(torch.tensor([0.0, 0.03, 0.0])).numpy()
+        T[:3, :3] = se3.euler_zyx(torch.tensor([0.0, 0.03, 0.0])).numpy()
         kw = dict(dist_since=(1e-4,) * 3, rot_since=(1.5,) * 3)
     if case == "garbage":
         frame = torch.from_numpy(np.random.default_rng(9).uniform(0, 255, tuple(frame.shape))

@@ -132,11 +132,10 @@ def test_tf32_proof_products_match_reference(seed):
     follow the TF32 flags on CUDA as `torch.matmul`/`einsum` (fault C1) now
     go through `mm_fma`/`mv_fma`, which accumulate in the reference's order:
     `se3_inverse`, `se3_apply` and `se3_compose` equal the reference's bit
-    for bit on the CPU; `so3_exp`, the localizer's Euler matrix and the
+    for bit on the CPU; `so3_exp`, the Euler matrix `euler_zyx` and the
     homographies stay within the module's bar (measured 2.5e-7, 1.2e-7 and 0
     at the entry's intrinsics)."""
     from orbslam2_nmi_torch.ops import homography as th
-    from orbslam2_nmi_torch.slam.nmi import localizer as tloc
     from orbslam2_nmi_tpu.ops import homography as jh
     from orbslam2_nmi_tpu.slam.nmi import localizer as jloc
 
@@ -153,12 +152,33 @@ def test_tf32_proof_products_match_reference(seed):
                                   np.asarray(jse3.se3_compose(jnp.asarray(T1), jnp.asarray(T2))))
     _close(tse3.so3_exp(t(w)), jse3.so3_exp(jnp.asarray(w)))
     for a in w[:16] * 0.1:
-        _close(tloc._euler_zyx_matrix(t(a)), jloc._euler_zyx_matrix(jnp.asarray(a)))
+        _close(tse3.euler_zyx(t(a)), jloc._euler_zyx_matrix(jnp.asarray(a)))
     K = np.array([[435.0, 0, 480], [0, 435.0, 270], [0, 0, 1]], np.float32)
     ang = np.array(jh.rotation_grid_angles((5, 5, 5), (0.02, 0.02, 0.05)))
     ref = np.asarray(jh.homographies_from_angles(jnp.asarray(K), jnp.asarray(ang)))
     out = th.homographies_from_angles(t(K), t(ang)).numpy()
     assert np.abs(out - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def test_euler_zyx_batched_equals_rows():
+    """`euler_zyx` of a batch (the warp's homographies) equals it row by row
+    (the pose snap) bit for bit, and the JAX localizer's `_euler_zyx_matrix`
+    within 1e-6, on the ETH grid's rotations and its first three halvings
+    (108 angles) and 200 random triples."""
+    import jax
+
+    from orbslam2_nmi_torch.ops import homography as th
+    from orbslam2_nmi_tpu.slam.nmi import localizer as jloc
+
+    grids = [th.rotation_grid_angles((3, 3, 3), (0.02 / 2**k, 0.02 / 2**k, 0.05 / 2**k), "cpu")
+             for k in range(4)]
+    a = torch.cat(grids + [torch.from_numpy(
+        np.random.default_rng(3).normal(0, 0.3, (200, 3)).astype(np.float32))])
+    batched = tse3.euler_zyx(a).numpy()
+    rows = np.stack([tse3.euler_zyx(row).numpy() for row in a])
+    np.testing.assert_array_equal(batched.view(np.uint32), rows.view(np.uint32))
+    ref = np.asarray(jax.vmap(jloc._euler_zyx_matrix)(jnp.asarray(a.numpy())))
+    np.testing.assert_allclose(batched, ref, atol=1e-6, rtol=0)
 
 
 def test_fma_products_are_float32_with_fused_accumulation():

@@ -44,7 +44,7 @@ from orbslam2_nmi_tpu.parallel import sharded_nmi as jsn
 from orbslam2_nmi_tpu.parallel import sharded_pose_graph as jspg
 from orbslam2_nmi_tpu.solvers import local_ba, pose_graph
 
-from tests.test_ba import K, make_ba_problem, reproj_rmse
+from test_ba import K, make_ba_problem, reproj_rmse
 
 PG_ATOL = 1e-4
 BA_CAM_ATOL = 5e-3

@@ -461,18 +461,42 @@ def sharding_rank(problems: dict) -> dict:
         elif name.startswith("nmi_splat"):
             model = convert.render_model_from_numpy(p["points"], p["gray"], dev)
             out[name] = sharded_nmi.sharded_nmi_search(
-                mesh, model, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), t(p["angles"]),
-                p["K"], *p["hw"], *p["near_far"])
+                mesh, model, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), p["angles"], p["K"],
+                *p["hw"], *p["near_far"])
         elif name.startswith("nmi_mesh"):
             binned = raster.bin_mesh(MeshModel(*p["mesh"]), p["Tcw"], p["K"], *p["hw"],
                                      *p["near_far"], max_offset=p["max_offset"], device=dev)
             out[name] = sharded_nmi.sharded_nmi_search_mesh(
-                mesh, binned, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), t(p["angles"]),
-                p["K"], *p["near_far"])
+                mesh, binned, t(p["frame"]), t(p["Tcw"]), t(p["offsets"]), p["angles"], p["K"],
+                *p["near_far"])
         else:
             raise ValueError(f"unknown problem {name}")
     out["launches"] = dict(kernels.LAUNCHES)
     return out
+
+
+def warp_plan_calls_rank(p: dict, n_searches: int) -> int:
+    """One rank: `n_searches` mesh NMI searches of `p`
+    (`sharding_mesh_problem`), and how often they called
+    `homography.warp_plan`."""
+    from orbslam2_nmi_torch.ops import homography
+    from orbslam2_nmi_torch.parallel import distributed, mesh as mesh_lib, sharded_nmi
+
+    dev = distributed.local_device()
+    mesh = mesh_lib.make_mesh()
+    binned = raster.bin_mesh(MeshModel(*p["mesh"]), p["Tcw"], p["K"], *p["hw"], *p["near_far"],
+                             max_offset=p["max_offset"], device=dev)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    calls, build = [], homography.warp_plan
+    homography.warp_plan = lambda *a: calls.append(a) or build(*a)
+    try:
+        for _ in range(n_searches):
+            sharded_nmi.sharded_nmi_search_mesh(mesh, binned, t(p["frame"]), t(p["Tcw"]),
+                                                t(p["offsets"]), p["angles"], p["K"],
+                                                *p["near_far"])
+    finally:
+        homography.warp_plan = build
+    return len(calls)
 
 
 def rank_that_fails(bad_rank: int) -> int:
